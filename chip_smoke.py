@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--rows N]
+    python3 chip_smoke.py [--rows N] [--inserts M]
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, builds a
 HybridIndex of the "querysim-shard" configuration on the card and drives
-the three-pass search through its entry points, then holds every kernel
-against its plain PyTorch version on the card.  Each phase prints one JSON
-line; any failed check raises, and the script exits non-zero.  The last
-line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
-without the rest of the repository beside it, it fails before printing a
-result.  It imports nothing of JAX.
+its two serving paths through their entry points: the immutable three-pass
+search (phase ``slice``) and the mutable index — inserts into the delta
+shard, deletes, searches merged across main and delta, merge and retrain
+compaction (phase ``mutable``).  It holds every kernel against its plain
+PyTorch version on the card (phases ``kernels_checked`` and
+``value_forward``, the latter also driving ``score_inverted_vf``).  Each
+phase prints one JSON line; any failed check raises, and the script exits
+non-zero.  The last line is ``{"ok": true, "device": {...}}``.  Without a
+CUDA device, or without the rest of the repository beside it, it fails
+before printing a result.  It imports nothing of JAX.
 
 The configuration: ``make_hybrid_dataset(num_points=524288, num_queries=128,
 d_sparse=200000, d_dense=200, nnz_per_row=134, alpha=2.0, dense_weight=2.0,
@@ -19,7 +23,9 @@ seed=3)`` (QuerySim-shaped; d_dense=200 gives K=100 subspaces of l=16) and
 nq_max=256)``, searched with h=20, alpha=25, beta=6 (c1=500: the fused
 scan-and-select and the block-sparse head kernel).  The 524288 rows are a
 cut of one 2^22-row shard of a 2^30-row deployment; ``--rows`` cuts further
-for quick runs.
+for quick runs.  The mutable phase inserts ``--inserts`` (default 8192)
+perturbed copies of main rows in batches of 16 into the default
+64-slot delta shard.
 """
 
 from __future__ import annotations
@@ -246,7 +252,7 @@ def run_slice(args, torch):
          packed_max_abs_err=packed_err, c1_2000_routes_k1=True,
          search_latency=latency, search_profile=profiles,
          max_memory_allocated=torch.cuda.max_memory_allocated())
-    return idx, ds, (q_dims, q_vals, q_dense), launches, c1
+    return idx, ds, (q_dims, q_vals, q_dense), launches, c1, res
 
 
 # ---------------------------------------------------------------------------
@@ -258,7 +264,8 @@ def edge_cases_lut16(torch, ops, ref):
     cases = 0
     for n, k_sub, q, packed in ((3001, 100, 5, False), (3001, 99, 13, True),
                                 (4096, 100, 8, True), (2500, 7, 1, False),
-                                (9000, 32, 33, False), (600, 16, 3, True)):
+                                (9000, 32, 33, False), (600, 16, 3, True),
+                                (1024, 100, 8, False), (64, 100, 3, True)):
         codes = torch.randint(0, 16, (n, k_sub), generator=g, device="cuda",
                               dtype=torch.uint8)
         lut = torch.randn((q, k_sub, 16), generator=g, device="cuda")
@@ -279,8 +286,10 @@ def edge_cases_lut16(torch, ops, ref):
         mask = torch.zeros(n, device="cuda")
         mask[torch.randperm(n, generator=g, device="cuda")[: n // 3]] = -torch.inf
         mask[tie_rows] = 0.0
-        for kk in (1, 500, 1024):
-            if kk > n:
+        # k == N (one CTA, every row selected, masked rows -1) wherever
+        # it fits the fused buffer, as the delta engine asks for it
+        for kk in sorted({1, 500, 1024, n}):
+            if kk > min(n, ops.MAX_FUSED_CANDIDATES):
                 continue
             for b, rm in ((bias, None), (None, mask), (bias, mask), (None, None)):
                 s, i = ops.lut16_adc_topk(stored, lut, kk, bias=b, row_mask=rm,
@@ -325,6 +334,18 @@ def edge_cases_block_sparse(torch, ops, ref):
         check(bool((got[:, 128:256] == 0).all()), "empty row block not zero")
         cases += 1
     return cases
+
+
+def kernel_row(name, source, replaces, launches, m, nbytes, nops) -> dict:
+    """One entry of the ``kernels`` line; the bound is the larger of the
+    bytes over the memory rate and the operations over the f32 rate."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_OPS_PER_S * 1e3
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations",
+            "library_ms": m["library_ms"]}
 
 
 def run_kernels(torch, idx, queries, launches, c1):
@@ -393,25 +414,17 @@ def run_kernels(torch, idx, queries, launches, c1):
     edge_lut = edge_cases_lut16(torch, ops, ref)
     edge_bs = edge_cases_block_sparse(torch, ops, ref)
 
-    def row(name, source, replaces, key, m, nbytes, nops):
-        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_OPS_PER_S * 1e3
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[key],
-                "max_abs_err": m["max_abs_err"], "ms": m["ms"],
-                "plain_ms": m["plain_ms"], "bound_ms": max(tb, to),
-                "bound_by": "bytes" if tb >= to else "operations",
-                "library_ms": m["library_ms"]}
-
     rows = [
-        row("lut16_adc", "src/repro_torch/csrc/lut16.cu",
-            "src/repro/kernels/lut16.py:110", "lut16_adc", k1, k1_bytes,
-            k1_ops),
-        row("lut16_adc_topk", "src/repro_torch/csrc/lut16.cu",
-            "src/repro/kernels/lut16.py:216", "lut16_adc_topk", k2, k2_bytes,
-            k2_ops),
-        row("block_sparse_matmul", "src/repro_torch/csrc/block_sparse.cu",
-            "src/repro/kernels/block_sparse.py:83", "block_sparse_matmul", k3,
-            k3_bytes, k3_ops),
+        kernel_row("lut16_adc", "src/repro_torch/csrc/lut16.cu",
+                   "src/repro/kernels/lut16.py:110", launches["lut16_adc"],
+                   k1, k1_bytes, k1_ops),
+        kernel_row("lut16_adc_topk", "src/repro_torch/csrc/lut16.cu",
+                   "src/repro/kernels/lut16.py:216",
+                   launches["lut16_adc_topk"], k2, k2_bytes, k2_ops),
+        kernel_row("block_sparse_matmul",
+                   "src/repro_torch/csrc/block_sparse.cu",
+                   "src/repro/kernels/block_sparse.py:83",
+                   launches["block_sparse_matmul"], k3, k3_bytes, k3_ops),
     ]
     emit("kernels_checked", slice_shapes={"Q": nq, "N": n, "Kc": kc, "K": k_sub,
                                           "k": c1, "tiles": t_real,
@@ -421,11 +434,395 @@ def run_kernels(torch, idx, queries, launches, c1):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# value_forward: B4 through score_inverted_vf, against score_inverted
+# ---------------------------------------------------------------------------
+
+def edge_cases_value_forward(torch, ops, ref):
+    """B4 at small shapes on the card: each must equal the port's
+    score_inverted and the plain version bit for bit."""
+    import scipy.sparse as sp
+    from repro_torch.core.sparse_index import (build_compact_columns,
+                                               build_padded_inverted_index,
+                                               build_value_forward_stream,
+                                               score_inverted,
+                                               sparse_queries_to_padded)
+    cases, empty_segments = 0, 0
+    # (N, d, Q, bn, query density): N not a multiple of bn and Q not of
+    # bq; exact multiples; a single row block; small row blocks and short
+    # queries, so that many segments are empty
+    for n, d, qn, bn, qdens in ((700, 500, 9, 512, 0.02),
+                                (512, 200, 8, 512, 0.02),
+                                (50, 80, 3, 512, 0.02),
+                                (3000, 400, 5, 16, 0.004)):
+        x = sp.random(n, d, density=0.01, random_state=n, format="csr",
+                      dtype=np.float32)
+        cols, xc = build_compact_columns(x)
+        inv = build_padded_inverted_index(xc, device="cuda")
+        qs = sp.random(qn, d, density=qdens, random_state=n + 1,
+                       format="csr", dtype=np.float32)
+        qd, qv = sparse_queries_to_padded(qs, cols, nq_max=32)
+        if n == 700:
+            qd[0, 1], qv[0, 1] = qd[0, 0], 0.5      # a repeated dim
+            qd[2, :], qv[2, :] = cols.num_active, 0.0   # an all-pad query
+        qd_t, qv_t = torch.from_numpy(qd).cuda(), torch.from_numpy(qv).cuda()
+        got = ops.score_inverted_vf(inv, qd_t, qv_t, bn=bn, chunk=16)
+        check(torch.equal(got, score_inverted(inv, qd_t, qv_t)),
+              f"B4 != score_inverted at {(n, d, qn, bn)}")
+        st = build_value_forward_stream(inv, qd_t, qv_t, bn=bn, chunk=16)
+        kw = dict(bq=st.bq, bn=st.bn, chunk=st.chunk,
+                  num_row_blocks=st.num_row_blocks)
+        check(torch.equal(
+            ops.inverted_value_forward(st.ptr, st.rows, st.qidx, st.contrib,
+                                       **kw),
+            ref.inverted_value_forward_plain(st.ptr, st.rows, st.qidx,
+                                             st.contrib, **kw)),
+            f"B4 != plain at {(n, d, qn, bn)}")
+        if n == 700:
+            check(bool((got[2] == 0).all()), "all-pad query not zero")
+        ptr = st.ptr.cpu().numpy().reshape(-1, st.num_row_blocks + 1)
+        empty_segments += int((np.diff(ptr, axis=1) == 0).sum())
+        cases += 1
+    check(empty_segments > 0, "no edge case had an empty segment")
+    return {"cases": cases, "empty_segments": empty_segments}
+
+
+def run_value_forward(torch, idx, queries):
+    from repro_torch.core.engine import scatter_queries_compact
+    from repro_torch.core.sparse_index import (build_value_forward_stream,
+                                               score_inverted)
+    from repro_torch.kernels import ops, ref
+
+    inv = idx.engine.arrays.inv_index
+    q_dims, q_vals, _ = queries
+    nq, n, d_active = q_dims.shape[0], inv.num_points, inv.rows.shape[0]
+    torch.cuda.synchronize()
+    # the path, once, with every count at zero just before it
+    ops.reset_counts()
+    got = ops.score_inverted_vf(inv, q_dims, q_vals)
+    torch.cuda.synchronize()
+    launches = ops.LAUNCHES["inverted_value_forward"]
+    check(launches == 1 and sum(ref.PLAIN_CALLS.values()) == 0,
+          "score_inverted_vf did not launch B4 once")
+    check(tuple(got.shape) == (nq, n), "score_inverted_vf shape")
+    check(torch.equal(got, score_inverted(inv, q_dims, q_vals)),
+          "B4 != score_inverted at the slice shapes")
+
+    planner = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        st = build_value_forward_stream(inv, q_dims, q_vals)
+        torch.cuda.synchronize()
+        planner.append(time.perf_counter() - t0)
+    kw = dict(bq=st.bq, bn=st.bn, chunk=st.chunk,
+              num_row_blocks=st.num_row_blocks)
+    args = (st.ptr, st.rows, st.qidx, st.contrib)
+    out = ops.inverted_value_forward(*args, **kw)
+    plain = ref.inverted_value_forward_plain(*args, **kw)
+    check(torch.equal(out, plain), "B4 != plain at the slice shapes")
+
+    # yardstick: the tail postings as an (N x d_active) CSR times the
+    # scattered (d_active x Q) queries, one cuSPARSE product
+    live = inv.rows < n
+    dims = torch.arange(d_active, device=inv.rows.device)[:, None].expand_as(
+        inv.rows)
+    coo = torch.sparse_coo_tensor(
+        torch.stack([inv.rows[live].long(), dims[live]]), inv.vals[live],
+        (n, d_active)).coalesce()
+    x_csr = coo.to_sparse_csr()
+    q_cols = scatter_queries_compact(q_dims, q_vals, d_active)[:, :d_active]
+    q_mat = q_cols.T.contiguous()
+    lib = torch.sparse.mm(x_csr, q_mat).T
+    assert_close(lib, got, "torch.sparse.mm yardstick")
+
+    m = dict(ms=cuda_ms(lambda: ops.inverted_value_forward(*args, **kw)),
+             plain_ms=cuda_ms(lambda: ref.inverted_value_forward_plain(
+                 *args, **kw), runs=5, warmup=1),
+             library_ms=cuda_ms(lambda: torch.sparse.mm(x_csr, q_mat)),
+             max_abs_err=max_abs(out, plain))
+    si_ms = cuda_ms(lambda: score_inverted(inv, q_dims, q_vals))
+    qb, p_pad = st.rows.shape
+    entries = int((st.rows < st.bn).sum())
+    padded = int(st.ptr.reshape(qb, -1)[:, -1].sum()) * st.chunk
+    # the bound counts the stream entries the function needs (row, query,
+    # contribution), not the chunk padding or the tail past each block
+    nbytes = 12 * entries + 4 * qb * (st.num_row_blocks + 1) + 4 * nq * n
+    edges = edge_cases_value_forward(torch, ops, ref)
+    emit("value_forward", launches=launches, equals_score_inverted=True,
+         equals_plain=True, kernel_ms=m["ms"],
+         planner_ms=statistics.median(planner) * 1e3,
+         plain_ms=m["plain_ms"], library_ms=m["library_ms"],
+         library="torch.sparse.mm, (N x d_active) CSR x (d_active x Q)",
+         score_inverted_ms=si_ms, stream_entries=entries,
+         padded_entries=padded, p_pad=p_pad, query_blocks=qb,
+         row_blocks=st.num_row_blocks,
+         padding_share=1.0 - entries / (qb * p_pad), edge_cases=edges)
+    return kernel_row("inverted_value_forward",
+                      "src/repro_torch/csrc/block_sparse.cu",
+                      "src/repro/kernels/block_sparse.py:172", launches, m,
+                      nbytes, entries)
+
+
+# ---------------------------------------------------------------------------
+# mutable: the streaming index through HybridIndex's entry points
+# ---------------------------------------------------------------------------
+
+def perturbed_rows(ds, m: int, seed: int, dense_weight: float = 2.0):
+    """``m`` insert rows made as make_hybrid_dataset makes its queries:
+    copies of random main rows, sparse values x U(0.7, 1.3), dense plus
+    N(0, 0.2 * dense_weight / sqrt(d_dense))."""
+    rng = np.random.default_rng(seed)
+    n, d_dense = ds.x_dense.shape
+    src = rng.choice(n, size=m, replace=False)
+    xs = ds.x_sparse[src].copy()
+    xs.data *= rng.uniform(0.7, 1.3, size=xs.nnz).astype(np.float32)
+    xd = (ds.x_dense[src] + 0.2 * dense_weight / np.sqrt(d_dense)
+          * rng.normal(size=(m, d_dense))).astype(np.float32)
+    return xs, xd
+
+
+def live_recall(torch, midx, ds, res, h) -> float:
+    """recall@h of a mutable search against exact search over the live
+    corpus (``MutableState.survivors()``), in external ids."""
+    from repro_torch.core.baselines import exact_topk, recall_at_h
+    xs, xd, ids = midx.mutable_state.survivors()
+    pos, _ = exact_topk(ds.q_sparse, ds.q_dense, xs, xd, h, device="cuda")
+    return recall_at_h(res.ids, ids[pos])
+
+
+def timed_searches(torch, midx, ds, h, alpha, beta) -> dict:
+    out = {}
+    for nq in (1, 8, 128):
+        qs, qd = ds.q_sparse[:nq], ds.q_dense[:nq]
+        for _ in range(3):
+            midx.search(qs, qd, h=h, alpha=alpha, beta=beta)
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            midx.search(qs, qd, h=h, alpha=alpha, beta=beta)
+            times.append(time.perf_counter() - t0)
+        med = statistics.median(times)
+        out[str(nq)] = {"median_ms": med * 1e3, "min_ms": min(times) * 1e3,
+                        "qps": nq / med}
+    return out
+
+
+def counted_search(torch, midx, ds, h, alpha, beta):
+    """One Q = 128 search with every count at zero just before it."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import PLAIN_CALLS
+    ops.reset_counts()
+    res = midx.search(ds.q_sparse, ds.q_dense, h=h, alpha=alpha, beta=beta)
+    torch.cuda.synchronize()
+    check(sum(PLAIN_CALLS.values()) == 0, "mutable search ran a plain version")
+    check(res.ids.shape == (ds.q_dense.shape[0], h)
+          and bool(np.isfinite(res.scores).all()),
+          "mutable search result is not finite (Q, h)")
+    return res, dict(ops.LAUNCHES)
+
+
+def delta_kernel_check(torch, midx, q) -> dict:
+    """The delta engine's pass 1 at the shapes the mutable path gives it:
+    the current snapshot's codes, LUT, pass-1 bias and tombstone mask with
+    k == N == capacity.  K2 (up to 1024 slots) or K1 + stable sort (above)
+    must equal the plain version bit for bit, and every masked slot must
+    come back with id -1."""
+    from repro_torch.core.engine import pass1_bias
+    from repro_torch.core.pq import adc_lut
+    from repro_torch.kernels import ops, ref
+    snap = midx.mutable_state.delta.snapshot()
+    arrays, k = snap.arrays, snap.capacity
+    q_dims, q_vals, q_dense = q
+    codes, packed, mask = arrays.codes, arrays.codes_packed, arrays.valid_mask
+    lut = adc_lut(q_dense, arrays.codebooks)
+    bias = pass1_bias(arrays, q_dims, q_vals, midx.engine.backend)
+    lut_p = ops._validate_packed(codes.shape[1], lut.shape[1], lut.shape[2],
+                                 lut, packed)
+    s, i = ops.lut16_adc_topk(codes, lut, k, bias=bias, row_mask=mask,
+                              packed=packed)
+    ps, pi = ops._normalize(*ref.lut16_adc_topk_plain(
+        codes, lut_p, bias + mask[None], k, packed=packed))
+    kernel = "K2" if k <= ops.MAX_FUSED_CANDIDATES else "K1 + stable sort"
+    check(torch.equal(s, ps) and torch.equal(i, pi),
+          f"delta {kernel} != plain at k == N == {k}")
+    if k > ops.MAX_FUSED_CANDIDATES:
+        check(torch.equal(ops.lut16_adc(codes, lut, packed=packed),
+                          ref.lut16_adc_plain(codes, lut_p, packed=packed)),
+              f"delta K1 != plain at N == {k}")
+    masked = int((i == -1).sum())
+    check(masked == q_dims.shape[0] * (k - snap.live),
+          f"delta at k == N == {k}: {masked} ids -1, expected "
+          f"{q_dims.shape[0]} x {k - snap.live} masked slots")
+    return {"kernel": kernel, "k": k, "live": snap.live, "ids_minus_1": masked,
+            "equals_plain": True}
+
+
+def held_snapshot_check(torch, midx, q, insert, alpha, beta) -> dict:
+    """Hold the delta's snapshot, insert, and search the held snapshot
+    again: the result must not change by a bit."""
+    from repro_torch.core.engine import ScoringEngine
+    delta = midx.mutable_state.delta
+    snap = delta.snapshot()
+    eng = ScoringEngine(arrays=snap.arrays, backend=midx.engine.backend)
+    before = eng.search(*q, h=snap.capacity, alpha=alpha, beta=beta)
+    insert()
+    after = eng.search(*q, h=snap.capacity, alpha=alpha, beta=beta)
+    check(all(torch.equal(a, b) for a, b in zip(before, after)),
+          "a held delta snapshot changed under an insert")
+    return {"count": snap.count, "capacity": snap.capacity,
+            "capacity_after": delta.capacity,
+            "in_place": delta.capacity == snap.capacity}
+
+
+def run_mutable(args, torch, ds, params, immutable_res):
+    from repro_torch.core.distributed import ceil16
+    from repro_torch.core.hybrid import HybridIndex
+    from repro_torch.core.sparse_index import sparse_queries_to_padded
+    from repro_torch.kernels.ops import MAX_FUSED_CANDIDATES
+
+    h, alpha, beta = 20, 25, 6
+    n = ds.x_sparse.shape[0]
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    midx = HybridIndex.build(ds.x_sparse, ds.x_dense, params, mutable=True,
+                             device="cuda")
+    build_s = time.perf_counter() - t0
+    st = midx.mutable_state
+    delta = st.delta
+    # 1. before any mutation: the immutable index's search, bit for bit
+    res0, launches0 = counted_search(torch, midx, ds, h, alpha, beta)
+    check(np.array_equal(res0.ids, immutable_res.ids)
+          and np.array_equal(res0.scores, immutable_res.scores),
+          "fresh mutable search != the immutable index's search")
+
+    # 2-4. inserts, batch 16, into the default 64-slot delta; the device
+    # view is materialised after every batch, as before a serving search
+    xs_new, xd_new = perturbed_rows(ds, args.inserts, seed=3)
+    q_dims, q_vals = sparse_queries_to_padded(ds.q_sparse, midx.cols,
+                                              nq_max=params.nq_max)
+    q = (torch.from_numpy(q_dims).cuda(), torch.from_numpy(q_vals).cuda(),
+         torch.from_numpy(ds.q_dense).cuda())
+    new_ids, insert_s, steps = [], 0.0, {}
+    for lo in range(0, args.inserts, 16):
+        def insert(lo=lo):
+            new_ids.extend(midx.insert(xs_new[lo:lo + 16],
+                                       xd_new[lo:lo + 16]).tolist())
+            delta.snapshot()
+        if delta.count == 1536:
+            steps["held_snapshot_in_place"] = held_snapshot_check(
+                torch, midx, q, insert, alpha, beta)
+        else:
+            t0 = time.perf_counter()
+            insert()
+            torch.cuda.synchronize()
+            insert_s += time.perf_counter() - t0
+        if delta.count in (48, MAX_FUSED_CANDIDATES - 16):
+            # k == N with unfilled slots under the mask: one CTA
+            steps[f"delta_kernel_{delta.count}"] = delta_kernel_check(
+                torch, midx, q)
+        if delta.count == MAX_FUSED_CANDIDATES:
+            _, launches = counted_search(torch, midx, ds, h, alpha, beta)
+            check(delta.capacity == MAX_FUSED_CANDIDATES
+                  and launches["lut16_adc_topk"] == 2
+                  and launches["lut16_adc"] == 0,
+                  f"delta at k == N == 1024 did not take K2: {launches}")
+            steps["delta_1024"] = {"launches": launches,
+                                   "capacity": delta.capacity,
+                                   "kernel": delta_kernel_check(torch, midx, q)}
+    check(args.inserts <= 1536 or "held_snapshot_in_place" in steps,
+          "the in-place snapshot check did not run")
+    timed_inserts = args.inserts - 16 * ("held_snapshot_in_place" in steps)
+    insert_stats = {"rows": args.inserts, "batch": 16, "seconds": insert_s,
+              "rows_per_s": timed_inserts / insert_s,
+              "upload_bytes": delta.upload_bytes,
+              "upload_bytes_per_row": delta.upload_bytes / args.inserts,
+              "capacity": delta.capacity, "r_max": delta._rmax,
+              "postings_l_max": delta._postings.l_max,
+              "dropped_nnz": delta.dropped_nnz}
+
+    # 5. delete 256 delta rows and 16 main rows
+    rng = np.random.default_rng(4)
+    main_dead = rng.choice(n, size=80, replace=False)
+    delta_dead = new_ids[::32][:256]
+    check(midx.delete(delta_dead) == len(delta_dead), "delta deletes")
+    check(midx.delete(main_dead[:16]) == 16, "main deletes")
+    res5, launches5 = counted_search(torch, midx, ds, h, alpha, beta)
+    c1_main = alpha * (h + ceil16(16))
+    check(launches5["lut16_adc"] == 1 and launches5["lut16_adc_topk"] == 1,
+          f"delta K1 + main K2 (c1 {c1_main}) expected: {launches5}")
+    recall5 = live_recall(torch, midx, ds, res5, h)
+    check(recall5 >= 0.95, f"recall@{h} after the mutations {recall5} < 0.95")
+    steps["after_deletes"] = {
+        "main_c1": c1_main, "launches": launches5, "recall_at_20": recall5,
+        "delta_kernel": delta_kernel_check(torch, midx, q),
+        "search_latency": timed_searches(torch, midx, ds, h, alpha, beta)}
+
+    # 6. 64 more main deletes: the main engine's c1 passes 1024 -> K1
+    check(midx.delete(main_dead[16:]) == 64, "main deletes")
+    res6, launches6 = counted_search(torch, midx, ds, h, alpha, beta)
+    c1_main = alpha * (h + ceil16(80))
+    check(launches6["lut16_adc"] == 2 and launches6["lut16_adc_topk"] == 0,
+          f"delta K1 + main K1 (c1 {c1_main}) expected: {launches6}")
+    steps["after_more_deletes"] = {
+        "main_c1": c1_main, "launches": launches6,
+        "recall_at_20": live_recall(torch, midx, ds, res6, h),
+        "search_latency": timed_searches(torch, midx, ds, h, alpha, beta)}
+
+    # 7. snapshot isolation at the end of the inserts (this insert grows)
+    xs7, xd7 = perturbed_rows(ds, 16, seed=5)
+    steps["held_snapshot_growth"] = held_snapshot_check(
+        torch, midx, q, lambda: midx.insert(xs7, xd7), alpha, beta)
+
+    # 8. merge compaction
+    t0 = time.perf_counter()
+    merged = midx.compact(retrain=False)
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t0
+    res8, _ = counted_search(torch, merged, ds, h, alpha, beta)
+    recall8 = live_recall(torch, merged, ds, res8, h)
+    check(recall8 >= 0.95, f"recall@{h} after merge compaction {recall8}")
+    steps["merge_compact"] = {
+        "seconds": merge_s, "rows": merged.num_points,
+        "recall_at_20": recall8,
+        "index_device_bytes": tensor_bytes(merged.engine.arrays)}
+    del merged
+
+    # 9. retrain compaction == a scratch build on survivors(), bit for bit
+    t0 = time.perf_counter()
+    retrained = midx.compact(retrain=True)
+    retrain_s = time.perf_counter() - t0
+    r_a = retrained.search(ds.q_sparse, ds.q_dense, h=h, alpha=alpha,
+                           beta=beta)
+    del retrained
+    xs, xd, ids = st.survivors()
+    scratch = HybridIndex.build(xs, xd, params, mutable=True, ext_ids=ids,
+                                device="cuda")
+    r_b = scratch.search(ds.q_sparse, ds.q_dense, h=h, alpha=alpha,
+                         beta=beta)
+    del scratch
+    check(np.array_equal(r_a.ids, r_b.ids)
+          and np.array_equal(r_a.scores, r_b.scores),
+          "retrain compaction != scratch build")
+    steps["retrain_compact"] = {"seconds": retrain_s,
+                                "equals_scratch_build": True}
+    del midx
+    torch.cuda.empty_cache()
+    emit("mutable", build_s=build_s, fresh_equals_immutable=True,
+         fresh_launches=launches0, insert=insert_stats, steps=steps,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         seconds=time.perf_counter() - t_phase)
+    return launches6
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=524288,
                     help="rows of the slice (default 524288)")
+    ap.add_argument("--inserts", type=int, default=8192,
+                    help="rows the mutable phase inserts (default 8192)")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
     if not torch.cuda.is_available():
@@ -449,8 +846,18 @@ def main() -> int:
              for name, log in info["ptxas"].items()}
     emit("build", seconds=info["seconds"], built=info["built"], ptxas=ptxas)
 
-    idx, _, queries, launches, c1 = run_slice(args, torch)
+    idx, ds, queries, launches, c1, res = run_slice(args, torch)
     rows = run_kernels(torch, idx, queries, launches, c1)
+    rows.append(run_value_forward(torch, idx, queries))
+    params = idx.params
+    del idx, queries
+    torch.cuda.empty_cache()
+    # K1 runs on the mutable path: its count comes from that path's run
+    rows[0]["launches"] = run_mutable(args, torch, ds, params,
+                                      res)["lut16_adc"]
+    for r, path in zip(rows, ("mutable", "slice", "slice", "value_forward")):
+        r["path"] = path
+    emit("total", seconds=time.perf_counter() - t_start)
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

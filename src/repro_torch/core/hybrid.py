@@ -1,6 +1,6 @@
 """HybridIndex — the paper's full indexing + search pipeline (paper §6).
 
-Counterpart of ``repro.core.hybrid`` on the immutable path.
+Counterpart of ``repro.core.hybrid``.
 
 Build:
   1. cache-sort datapoints (Algorithm 1) — all row-parallel structures below
@@ -14,7 +14,10 @@ Steps 1-3 run on the host in numpy (copies of the JAX package's builders);
 steps 4-5 run on ``device``.
 
 Search converts queries to the padded layout, runs the engine's three-pass
-search on the device and maps result positions back to original ids.
+search on the device and maps result positions back to original ids.  An
+index built with ``mutable=True`` also takes ``insert`` / ``delete`` /
+``compact`` (core/streaming.py), and its search merges the main engine
+with the delta shard.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from .sparse_index import (CompactColumns, PaddedInvertedIndex,
                            build_compact_columns, build_padded_inverted_index,
                            build_padded_rows, build_tile_sparse_head,
                            sparse_queries_to_padded)
+from .streaming import MutableState, search_mutable
 
 __all__ = ["HybridIndexParams", "HybridIndex", "SearchResult"]
 
@@ -103,6 +107,9 @@ class HybridIndex:
     engine: ScoringEngine              # device-resident three-pass scorer
     # wall seconds of each build stage (empty for an index carried across)
     build_seconds: dict = dataclasses.field(default_factory=dict)
+    # present iff built with mutable=True: the retained corpus, the delta
+    # shard and the tombstones behind insert()/delete()/compact()
+    mutable_state: MutableState | None = None
 
     @property
     def device(self) -> torch.device:
@@ -112,11 +119,14 @@ class HybridIndex:
     @classmethod
     def build(cls, x_sparse: sp.spmatrix, x_dense: np.ndarray,
               params: HybridIndexParams = HybridIndexParams(), *,
-              mutable: bool = False, device="cuda") -> "HybridIndex":
-        if mutable:
-            raise NotImplementedError(
-                "the mutable (streaming) index is not ported yet: ROADMAP "
-                "queue A item 6")
+              mutable: bool = False, ext_ids: np.ndarray | None = None,
+              delta_capacity: int = 64, device="cuda") -> "HybridIndex":
+        """Build the index on ``device``.  ``mutable=True`` attaches a
+        ``MutableState`` whose rows carry ``ext_ids`` (default: build-row
+        positions) and whose delta shard starts at ``delta_capacity`` slots
+        (doubling past it)."""
+        if ext_ids is not None and not mutable:
+            raise ValueError("ext_ids only applies with mutable=True")
         dev = resolve_device(device)
         seconds = {}
         t = time.perf_counter()
@@ -184,12 +194,17 @@ class HybridIndex:
             num_points=n, d_active=cols.num_active,
             with_bcsr=backend.uses_kernels, pack=params.resolve_pack())
         stage("arrays")
-        return cls(params=params, num_points=n, pi=pi, cols=cols,
-                   inv_index=inv_index, head=head, head_dim_ids=head_dim_ids,
-                   sparse_residual=sparse_residual, codebooks=cb,
-                   codes=arrays.codes, dense_residual=dres, d_dense=d_dense,
-                   engine=ScoringEngine(arrays=arrays, backend=backend),
-                   build_seconds=seconds)
+        idx = cls(params=params, num_points=n, pi=pi, cols=cols,
+                  inv_index=inv_index, head=head, head_dim_ids=head_dim_ids,
+                  sparse_residual=sparse_residual, codebooks=cb,
+                  codes=arrays.codes, dense_residual=dres, d_dense=d_dense,
+                  engine=ScoringEngine(arrays=arrays, backend=backend),
+                  build_seconds=seconds)
+        if mutable:
+            idx.mutable_state = MutableState(idx, x_sparse, x_dense,
+                                             ext_ids=ext_ids,
+                                             delta_capacity=delta_capacity)
+        return idx
 
     # -- persistence -------------------------------------------------------
     @classmethod
@@ -204,12 +219,53 @@ class HybridIndex:
             "saving a snapshot store is not ported yet: ROADMAP queue A "
             "item 8")
 
+    # -- streaming mutation (thin wrappers over core/streaming.py) ---------
+    def _mutable(self):
+        if self.mutable_state is None:
+            raise ValueError("index is immutable; build with "
+                             "HybridIndex.build(..., mutable=True)")
+        return self.mutable_state
+
+    def insert(self, x_sparse, x_dense, ids=None) -> np.ndarray:
+        """Insert (or upsert) rows into the delta shard (DESIGN.md §6),
+        encoded against the frozen build artifacts.  Returns external ids."""
+        return self._mutable().insert(x_sparse, x_dense, ids=ids)
+
+    def delete(self, ids) -> int:
+        """Tombstone rows by external id; returns how many were live."""
+        return self._mutable().delete(ids)
+
+    def compact(self, retrain: bool | None = None) -> "HybridIndex":
+        """Fold the delta + tombstones down; returns the NEW mutable index
+        (this one is untouched).  ``retrain=True`` re-runs the batch build,
+        ``retrain=False`` merges into the frozen artifacts, ``None`` merges
+        unless out-of-column-space entries force a retrain (DESIGN.md
+        §6.2)."""
+        return self._mutable().compact(retrain=retrain)
+
+    @property
+    def delta_version(self) -> int:
+        """Monotone mutation counter (0 for an untouched mutable index)."""
+        return self._mutable().version
+
     # -- search ------------------------------------------------------------
     def search(self, q_sparse: sp.spmatrix, q_dense: np.ndarray, h: int = 20,
                alpha: int | None = None, beta: int | None = None,
                return_pass1: bool = False) -> SearchResult:
         """Pad queries to the device layout, run the engine's three-pass
-        search, map positions back to original ids."""
+        search, map positions back to original ids.
+
+        A mutable index routes through ``search_mutable`` (main engine +
+        delta shard, host merge) and returns EXTERNAL ids, which default to
+        build-row positions, so the two paths agree until the first
+        mutation."""
+        if self.mutable_state is not None:
+            if return_pass1:
+                raise ValueError("return_pass1 is a diagnostic of the "
+                                 "single-engine path; not available on a "
+                                 "mutable index")
+            return search_mutable(self, q_sparse, q_dense, h=h, alpha=alpha,
+                                  beta=beta)
         p = self.params
         alpha = p.alpha if alpha is None else alpha
         beta = p.beta if beta is None else beta

@@ -17,11 +17,16 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
+
+from ..device import to_numpy
+from ..kernels.lut16 import pack_codes
 
 __all__ = [
     "PQCodebooks", "train_codebooks", "pq_encode", "pq_decode", "adc_lut",
     "adc_scores_ref", "ScalarQuant", "scalar_quantize", "scalar_dequantize",
+    "scalar_quantize_rows", "encode_rows", "pack_codes", "whitening_transform",
 ]
 
 
@@ -32,6 +37,10 @@ class PQCodebooks:
     centers: (K, l, p) float32.
     """
     centers: torch.Tensor
+
+    @property
+    def num_subspaces(self) -> int:
+        return self.centers.shape[0]
 
     @property
     def num_codes(self) -> int:
@@ -152,3 +161,40 @@ def scalar_quantize(x: torch.Tensor) -> ScalarQuant:
 
 def scalar_dequantize(sq: ScalarQuant) -> torch.Tensor:
     return (sq.q.float() + 128.0) * sq.scale + sq.zero
+
+
+def scalar_quantize_rows(x: np.ndarray, scale, zero) -> np.ndarray:
+    """Quantize NEW rows on a FROZEN grid (the delta shard's insert path):
+    the main generation's ``scale``/``zero`` (tensors or arrays) stay, and
+    the rows are clamped into them.  Host numpy, rounding half to even as
+    ``np.round`` does — the JAX package's arithmetic.  (M, d) -> int8."""
+    x = np.asarray(x, np.float32)
+    scale = np.asarray(to_numpy(scale), np.float32)
+    zero = np.asarray(to_numpy(zero), np.float32)
+    q = np.clip(np.round((x - zero) / scale), 0, 255) - 128
+    return q.astype(np.int8)
+
+
+def encode_rows(x_dense: np.ndarray, codebooks: PQCodebooks, *,
+                pack: bool = False) -> np.ndarray:
+    """Encode-on-insert: PQ-encode NEW dense rows against the FROZEN
+    codebooks, through ``pq_encode`` on the codebooks' device.  pack=True
+    returns them two codes per byte (``pack_codes``, odd-K phantom nibble
+    included).  (M, d) -> (M, K) uint8, or (M, ceil(K/2)) packed; numpy."""
+    x = torch.from_numpy(np.asarray(x_dense, np.float32)).to(
+        codebooks.centers.device)
+    codes = pq_encode(x, codebooks).cpu().numpy()
+    return pack_codes(codes) if pack else codes
+
+
+def whitening_transform(x_dense, eps: float = 1e-4, *, device="cuda"):
+    """P = Cov^{-1/2}(X^D) (paper §4.1.3), computed on the host in float64.
+    Returns (P, P^{-T}) as float32 tensors on ``device``: data is
+    multiplied by P and queries by (P^{-1})^T, preserving inner products."""
+    x = np.asarray(to_numpy(x_dense), np.float64)
+    cov = np.cov(x, rowvar=False) + eps * np.eye(x.shape[1])
+    evals, evecs = np.linalg.eigh(cov)
+    p = evecs @ np.diag(evals ** -0.5) @ evecs.T
+    p_inv_t = evecs @ np.diag(evals ** 0.5) @ evecs.T            # symmetric
+    return (torch.from_numpy(p.astype(np.float32)).to(device),
+            torch.from_numpy(p_inv_t.astype(np.float32)).to(device))

@@ -10,6 +10,9 @@ result on a torch device; the scorers are written in torch:
 * ``PaddedInvertedIndex`` — the power-law tail as rectangular (d_active,
   L_max) row-id / value arrays: scoring is a gather + scatter-add.
 * ``PaddedSparseRows`` — per-row residual entries for pass 3.
+* ``DeltaPostings`` — the delta shard's append-only inverted index (host).
+* ``ValueForwardStream`` — the host-planned (row, query, contribution)
+  stream the value-forward kernel (B4) consumes.
 """
 
 from __future__ import annotations
@@ -20,11 +23,14 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..device import to_numpy
+
 __all__ = [
     "CompactColumns", "PaddedInvertedIndex", "TileSparseHead",
     "PaddedSparseRows", "build_compact_columns", "build_padded_inverted_index",
     "build_tile_sparse_head", "build_padded_rows", "sparse_queries_to_padded",
-    "score_inverted", "score_head_ref", "score_rows",
+    "score_inverted", "score_head_ref", "score_rows", "DeltaPostings",
+    "ValueForwardStream", "build_value_forward_stream",
 ]
 
 
@@ -114,6 +120,70 @@ def sparse_queries_to_padded(q_sparse: sp.spmatrix, cols: CompactColumns,
         dims[i, : len(c)] = c
         vals[i, : len(c)] = v
     return dims, vals
+
+
+class DeltaPostings:
+    """Append-only inverted index of a delta shard (DESIGN.md §6).
+
+    Host-side mirror of ``PaddedInvertedIndex`` over the FROZEN compact
+    column space of the serving main index: inserting a row appends one
+    posting per nonzero dim.  ``l_max`` (the rectangle width) doubles when
+    a dim's list overflows, up to ``l_cap``; beyond the cap ``append``
+    hands the entries back as SPILL, which the delta shard stores in its
+    per-slot residual rows (scored exactly in pass 3).  Tombstoned rows
+    keep their postings; the delta's ``valid_mask`` removes their scores.
+    A numpy copy of the JAX package's class; only ``to_padded`` places
+    tensors on a device."""
+
+    def __init__(self, d_active: int, l_max: int = 4,
+                 l_cap: int | None = 16):
+        self.d_active = int(d_active)
+        self.l_max = max(int(l_max), 1)
+        self.l_cap = None if l_cap is None else max(int(l_cap), self.l_max)
+        self._rows = np.full((self.d_active, self.l_max), -1, np.int32)
+        self._vals = np.zeros((self.d_active, self.l_max), np.float32)
+        self._lens = np.zeros(self.d_active, np.int32)
+
+    def append(self, slot: int, dims: np.ndarray,
+               vals: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """Add row ``slot``'s postings; dims are compact ids < d_active.
+        Returns ``(spill_dims, spill_vals)``: the entries whose dim list is
+        at ``l_cap``, which the caller scores through pass 3."""
+        spill_d, spill_v = [], []
+        for d, v in zip(np.asarray(dims, np.int64), np.asarray(vals)):
+            n = int(self._lens[d])
+            if self.l_cap is not None and n >= self.l_cap:
+                spill_d.append(int(d))
+                spill_v.append(float(v))
+                continue
+            if n == self.l_max:
+                grow = self.l_max
+                self._rows = np.pad(self._rows, ((0, 0), (0, grow)),
+                                    constant_values=-1)
+                self._vals = np.pad(self._vals, ((0, 0), (0, grow)))
+                self.l_max *= 2
+            self._rows[d, n] = slot
+            self._vals[d, n] = v
+            self._lens[d] = n + 1
+        return (np.asarray(spill_d, np.int32),
+                np.asarray(spill_v, np.float32))
+
+    def to_padded(self, num_points: int, *, device="cuda") -> PaddedInvertedIndex:
+        """Materialise on ``device``: empty cells get the ``num_points``
+        sentinel (dropped by score_inverted), like the batch builder's."""
+        rows, vals = self.rows_for(np.arange(self.d_active), num_points)
+        return PaddedInvertedIndex(rows=torch.from_numpy(rows).to(device),
+                                   vals=torch.from_numpy(vals).to(device),
+                                   num_points=num_points)
+
+    def rows_for(self, dims: np.ndarray,
+                 num_points: int) -> tuple[np.ndarray, np.ndarray]:
+        """Padded ``(rows, vals)`` of just the given dims (numpy): the unit
+        an insert writes to the device instead of the whole rectangle."""
+        d = np.asarray(dims, np.int64)
+        rows = np.where(self._rows[d] >= 0, self._rows[d],
+                        num_points).astype(np.int32)
+        return rows, self._vals[d]
 
 
 def score_inverted(index: PaddedInvertedIndex, q_dims: torch.Tensor,
@@ -236,3 +306,133 @@ def score_rows(rows: PaddedSparseRows, candidates: torch.Tensor,
     qv = torch.gather(q_dense_cols, 1,
                       cand_cols.reshape(qn, c * r)).reshape(qn, c, r)
     return torch.sum(cand_vals * qv, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Value-forward stream (SINDI-style sparse pass 1; DESIGN.md §2.5)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ValueForwardStream:
+    """Host-planned posting stream of the value-forward kernel (B4).
+
+    The query's postings are flattened into one row-sorted (row, query,
+    contribution) stream per (query-block, row-block) pair: q_j is
+    multiplied into the posting values once, at plan time, and the kernel
+    only accumulates.  The layout is the JAX package's exactly: ``ptr``
+    counts CHUNKS, not entries (each segment is padded to a multiple of
+    ``chunk``); row ids are local to the row block, and pad entries carry
+    row ``bn``; the sort is stable, so per (query, row) the entries keep
+    the query's slot order."""
+    ptr: torch.Tensor     # (QB*(NB+1),) int32 chunk offsets, CSR per q-block
+    rows: torch.Tensor    # (QB, P_pad) int32 block-LOCAL row ids, pad = bn
+    qidx: torch.Tensor    # (QB, P_pad) int32 query index within block, pad 0
+    contrib: torch.Tensor  # (QB, P_pad) float32 q_val * posting_val, pad 0
+    num_points: int
+    num_queries: int
+    bq: int
+    bn: int
+    chunk: int
+    max_steps: int
+    num_row_blocks: int
+
+
+def build_value_forward_stream(index: PaddedInvertedIndex, q_dims, q_vals, *,
+                               bq: int = 8, bn: int = 512,
+                               chunk: int = 128) -> ValueForwardStream:
+    """Plan the value-forward stream on the host (numpy copy of the JAX
+    package's planner): the stream's length depends on the queries'
+    nonzeros.  Reads the index to the host; returns tensors on the index's
+    device."""
+    rows_idx = to_numpy(index.rows)
+    vals_idx = to_numpy(index.vals)
+    d_active = rows_idx.shape[0]
+    n = index.num_points
+    q_dims = to_numpy(q_dims)
+    q_vals = to_numpy(q_vals)
+    qn = q_dims.shape[0]
+
+    n_pad = max(-(-n // bn) * bn, bn)
+    nb = n_pad // bn
+    qb = max(-(-qn // bq), 1)
+
+    per_block: list[tuple[np.ndarray, np.ndarray, np.ndarray]] = []
+    ptr = np.zeros(qb * (nb + 1), np.int32)
+    max_steps = 1
+    for b in range(qb):
+        lo, hi = b * bq, min((b + 1) * bq, qn)
+        ent_r: list[np.ndarray] = []
+        ent_q: list[np.ndarray] = []
+        ent_c: list[np.ndarray] = []
+        for i in range(lo, hi):
+            dims = q_dims[i]
+            keep = dims < d_active
+            dims = dims[keep].astype(np.int64)
+            qv = q_vals[i][keep]
+            if dims.size == 0:
+                continue
+            r = rows_idx[dims]                              # (nq_i, L_max)
+            v = vals_idx[dims]
+            live = r < n                                    # drop pad sentinel
+            ent_r.append(r[live])
+            ent_q.append(np.full(int(live.sum()), i - lo, np.int32))
+            ent_c.append((qv[:, None] * v)[live])
+        if ent_r:
+            r_all = np.concatenate(ent_r)
+            q_all = np.concatenate(ent_q)
+            c_all = np.concatenate(ent_c).astype(np.float32)
+        else:
+            r_all = np.zeros(0, np.int64)
+            q_all = np.zeros(0, np.int32)
+            c_all = np.zeros(0, np.float32)
+        order = np.argsort(r_all, kind="stable")
+        r_all, q_all, c_all = r_all[order], q_all[order], c_all[order]
+
+        seg_r: list[np.ndarray] = []
+        seg_q: list[np.ndarray] = []
+        seg_c: list[np.ndarray] = []
+        bounds = np.searchsorted(r_all, np.arange(nb + 1) * bn)
+        off = 0
+        for j in range(nb):
+            s0, s1 = int(bounds[j]), int(bounds[j + 1])
+            m = s1 - s0
+            m_pad = -(-max(m, 0) // chunk) * chunk
+            ptr[b * (nb + 1) + j] = off
+            if m_pad:
+                lr = np.full(m_pad, bn, np.int32)            # pad: no row match
+                lq = np.zeros(m_pad, np.int32)
+                lc = np.zeros(m_pad, np.float32)
+                lr[:m] = r_all[s0:s1] - j * bn               # block-LOCAL ids
+                lq[:m] = q_all[s0:s1]
+                lc[:m] = c_all[s0:s1]
+                seg_r.append(lr)
+                seg_q.append(lq)
+                seg_c.append(lc)
+            off += m_pad // chunk
+            max_steps = max(max_steps, m_pad // chunk)
+        ptr[b * (nb + 1) + nb] = off
+        if seg_r:
+            per_block.append((np.concatenate(seg_r), np.concatenate(seg_q),
+                              np.concatenate(seg_c)))
+        else:
+            per_block.append((np.full(chunk, bn, np.int32),
+                              np.zeros(chunk, np.int32),
+                              np.zeros(chunk, np.float32)))
+
+    p_pad = max(max(pb[0].size for pb in per_block), chunk)
+    rows_out = np.full((qb, p_pad), bn, np.int32)
+    qidx_out = np.zeros((qb, p_pad), np.int32)
+    contrib_out = np.zeros((qb, p_pad), np.float32)
+    for b, (pr, pq, pc) in enumerate(per_block):
+        rows_out[b, :pr.size] = pr
+        qidx_out[b, :pq.size] = pq
+        contrib_out[b, :pc.size] = pc
+
+    dev = index.rows.device
+    return ValueForwardStream(
+        ptr=torch.from_numpy(ptr).to(dev),
+        rows=torch.from_numpy(rows_out).to(dev),
+        qidx=torch.from_numpy(qidx_out).to(dev),
+        contrib=torch.from_numpy(contrib_out).to(dev),
+        num_points=n, num_queries=qn, bq=bq, bn=bn, chunk=chunk,
+        max_steps=max_steps, num_row_blocks=nb)

@@ -1,10 +1,12 @@
-"""The one device rule of the port's entry points."""
+"""The one device rule of the port's entry points, and the one way host
+code reads a tensor or an array as numpy."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "to_numpy"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -17,3 +19,10 @@ def resolve_device(device="cuda") -> torch.device:
             "repro_torch: device 'cuda' requested but no CUDA device is "
             "available; pass device='cpu' to run the plain PyTorch versions")
     return dev
+
+
+def to_numpy(x) -> np.ndarray:
+    """A host numpy view of a tensor on any device, or of an array-like."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)

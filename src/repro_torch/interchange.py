@@ -4,7 +4,10 @@
 the leaf names of its snapshot format (``repro/persist/snapshot.py``), and
 assembles a port ``HybridIndex`` through the port's own
 ``IndexArrays.build`` (which derives the head scatter table and BCSR).
-Reading a snapshot directory from disk is left to the persistence port.
+``mutable_index_from_numpy`` also attaches a port ``MutableState`` over the
+corpus the reference index was built from, so both packages serve the same
+main generation.  Reading a snapshot directory from disk is left to the
+persistence port.
 """
 
 from __future__ import annotations
@@ -17,9 +20,11 @@ from .core.hybrid import HybridIndex, HybridIndexParams
 from .core.pq import PQCodebooks, ScalarQuant
 from .core.sparse_index import (CompactColumns, PaddedInvertedIndex,
                                 PaddedSparseRows, TileSparseHead)
+from .core.streaming import MutableState
 from .device import resolve_device
 
-__all__ = ["LEAVES", "SCALARS", "hybrid_index_from_numpy"]
+__all__ = ["LEAVES", "SCALARS", "hybrid_index_from_numpy",
+           "mutable_index_from_numpy"]
 
 LEAVES = ("pi", "cols_global_ids", "inv_rows", "inv_vals", "head_block",
           "head_occupancy", "head_dims", "res_cols", "res_vals", "centers",
@@ -74,3 +79,17 @@ def hybrid_index_from_numpy(leaves: dict, scalars: dict,
         head=head, head_dim_ids=head_dim_ids, sparse_residual=sparse_residual,
         codebooks=codebooks, codes=arrays.codes, dense_residual=dres,
         d_dense=k * p, engine=ScoringEngine(arrays=arrays, backend=backend))
+
+
+def mutable_index_from_numpy(leaves: dict, scalars: dict, x_sparse, x_dense, *,
+                             ext_ids=None, delta_capacity: int = 64,
+                             params: HybridIndexParams = HybridIndexParams(),
+                             device="cuda") -> HybridIndex:
+    """``hybrid_index_from_numpy``, then a port ``MutableState`` over the
+    corpus ``(x_sparse, x_dense)`` the reference index was built from, with
+    the same external ids (default: build-row positions)."""
+    idx = hybrid_index_from_numpy(leaves, scalars, params=params,
+                                  device=device)
+    idx.mutable_state = MutableState(idx, x_sparse, x_dense, ext_ids=ext_ids,
+                                     delta_capacity=delta_capacity)
+    return idx

@@ -1,10 +1,18 @@
-"""Block-sparse head scoring on Hopper: BCSR conversion and the launcher of K3.
+"""Block-sparse scoring on Hopper: BCSR conversion and the launchers of K3
+and B4.
 
 K3 (``csrc/block_sparse.cu:block_sparse_kernel``) replaces
 ``repro/kernels/block_sparse.py:block_sparse_matmul_pallas``: ``q @ X^T``
 over the nonzero 128 x 128 tiles of the cache-sorted head block, in BCSR
-order.  Zero tiles are never read.  What bounds it and what the design does
-about it is noted in the CUDA source.
+order.  Zero tiles are never read.
+
+B4 (``csrc/block_sparse.cu:inverted_value_forward_kernel``) replaces
+``repro/kernels/block_sparse.py:inverted_value_forward_pallas``: it
+accumulates a host-planned, row-sorted (row, query, contribution) stream
+into (Q, N) sparse scores.
+
+What bounds each and what its design does about it is noted in the CUDA
+source.
 """
 
 from __future__ import annotations
@@ -16,7 +24,8 @@ import torch
 
 from . import _build
 
-__all__ = ["dense_to_bcsr", "block_sparse_cuda", "TILE"]
+__all__ = ["dense_to_bcsr", "block_sparse_cuda",
+           "inverted_value_forward_cuda", "TILE"]
 
 TILE = 128          # tile rows and columns the CUDA kernel takes
 
@@ -24,6 +33,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "block_sparse_matmul_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "inverted_value_forward_launch": (
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
     "block_sparse_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -66,5 +77,26 @@ def block_sparse_cuda(q: torch.Tensor, tiles: torch.Tensor, ptr: torch.Tensor,
     if code != 0:
         raise RuntimeError(
             f"block_sparse_matmul launch failed: CUDA error {code} "
+            f"({lib.block_sparse_error_string(code).decode()})")
+    return out
+
+
+def inverted_value_forward_cuda(ptr: torch.Tensor, rows: torch.Tensor,
+                                qidx: torch.Tensor, contrib: torch.Tensor, *,
+                                bq: int, bn: int, chunk: int,
+                                num_row_blocks: int) -> torch.Tensor:
+    """Launch B4: the stream (ptr, rows, qidx, contrib) ->
+    (QB * bq, num_row_blocks * bn) f32."""
+    lib = _build.load("block_sparse", _SIGNATURES)
+    qb, p_pad = rows.shape
+    out = torch.empty((qb * bq, num_row_blocks * bn), dtype=torch.float32,
+                      device=rows.device)
+    code = lib.inverted_value_forward_launch(
+        ptr.data_ptr(), rows.data_ptr(), qidx.data_ptr(), contrib.data_ptr(),
+        out.data_ptr(), qb, bq, bn, chunk, num_row_blocks, p_pad,
+        torch.cuda.current_stream(rows.device).cuda_stream)
+    if code != 0:
+        raise RuntimeError(
+            f"inverted_value_forward launch failed: CUDA error {code} "
             f"({lib.block_sparse_error_string(code).decode()})")
     return out

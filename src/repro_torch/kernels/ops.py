@@ -1,4 +1,4 @@
-"""Public wrappers around the three kernels (counterpart of
+"""Public wrappers around the four kernels (counterpart of
 ``repro/kernels/ops.py``).
 
 The rule for every wrapper: a CPU tensor takes the plain PyTorch version
@@ -14,15 +14,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .block_sparse import TILE, block_sparse_cuda, dense_to_bcsr
+from .block_sparse import (TILE, block_sparse_cuda, dense_to_bcsr,
+                           inverted_value_forward_cuda)
 from .lut16 import (LUT_WIDTH, THREADS, adc_smem_bytes, candidate_buffer_width,
                     lut16_adc_cuda, lut16_adc_topk_cuda, pack_codes,
                     topk_half_width, topk_smem_bytes, unpack_codes)
-from .ref import (PLAIN_CALLS, block_sparse_plain, lut16_adc_plain,
+from .ref import (PLAIN_CALLS, block_sparse_plain,
+                  inverted_value_forward_plain, lut16_adc_plain,
                   lut16_adc_topk_plain, stable_topk)
 
 __all__ = ["lut16_adc", "lut16_adc_topk", "lut16_adc_onehot",
-           "block_sparse_matmul_bcsr", "bcsr_from_head", "pack_codes",
+           "block_sparse_matmul_bcsr", "bcsr_from_head",
+           "inverted_value_forward", "score_inverted_vf", "pack_codes",
            "unpack_codes", "candidate_buffer_width", "MAX_FUSED_CANDIDATES",
            "LAUNCHES", "reset_counts"]
 
@@ -34,7 +37,8 @@ MAX_FUSED_CANDIDATES = 1024
 _SMEM_LIMIT = 232448
 
 LAUNCHES = dict.fromkeys(
-    ("lut16_adc", "lut16_adc_topk", "block_sparse_matmul"), 0)
+    ("lut16_adc", "lut16_adc_topk", "block_sparse_matmul",
+     "inverted_value_forward"), 0)
 
 
 def reset_counts() -> None:
@@ -241,3 +245,48 @@ def block_sparse_matmul_bcsr(q_head: torch.Tensor, tiles: torch.Tensor,
     out = block_sparse_cuda(q_head.contiguous(), tiles, ptr, col)
     LAUNCHES["block_sparse_matmul"] += 1
     return out
+
+
+def inverted_value_forward(ptr: torch.Tensor, rows: torch.Tensor,
+                           qidx: torch.Tensor, contrib: torch.Tensor, *,
+                           bq: int, bn: int, chunk: int,
+                           num_row_blocks: int) -> torch.Tensor:
+    """Accumulate a value-forward stream into (QB * bq, num_row_blocks * bn)
+    f32 scores.  On CUDA this launches B4."""
+    kw = dict(bq=bq, bn=bn, chunk=chunk, num_row_blocks=num_row_blocks)
+    if not rows.is_cuda:
+        return inverted_value_forward_plain(ptr, rows, qidx, contrib, **kw)
+    qb, p_pad = rows.shape
+    for name, t, dt, shape in (
+            ("ptr", ptr, torch.int32, (qb * (num_row_blocks + 1),)),
+            ("rows", rows, torch.int32, (qb, p_pad)),
+            ("qidx", qidx, torch.int32, (qb, p_pad)),
+            ("contrib", contrib, torch.float32, (qb, p_pad))):
+        if t.device != rows.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {rows.device}")
+        if t.dtype != dt or tuple(t.shape) != shape:
+            raise TypeError(f"{name} must be {dt} {shape}, got {t.dtype} "
+                            f"{tuple(t.shape)}")
+    if p_pad % chunk or bq * bn * 4 > _SMEM_LIMIT:
+        raise ValueError(f"B4 takes P_pad a multiple of chunk={chunk} and a "
+                         f"{bq} x {bn} f32 tile in shared memory")
+    out = inverted_value_forward_cuda(ptr, rows, qidx, contrib, **kw)
+    LAUNCHES["inverted_value_forward"] += 1
+    return out
+
+
+def score_inverted_vf(index, q_dims, q_vals, *, bq: int = 8, bn: int = 512,
+                      chunk: int = 128) -> torch.Tensor:
+    """Value-forward inverted-index scoring (SINDI-style; DESIGN.md §2.5):
+    plans a row-sorted (row, query, contribution) stream per (query-block,
+    row-block) on the host, then accumulates it (B4 on CUDA).  Equals
+    ``core.sparse_index.score_inverted`` on the same ``PaddedInvertedIndex``
+    bit for bit.  The plan depends on the queries' nonzeros, so this is a
+    standalone op, not a step of the three-pass search.  Returns (Q, N)."""
+    from ..core.sparse_index import build_value_forward_stream
+    st = build_value_forward_stream(index, q_dims, q_vals, bq=bq, bn=bn,
+                                    chunk=chunk)
+    out = inverted_value_forward(st.ptr, st.rows, st.qidx, st.contrib,
+                                 bq=st.bq, bn=st.bn, chunk=st.chunk,
+                                 num_row_blocks=st.num_row_blocks)
+    return out[:st.num_queries, :st.num_points]

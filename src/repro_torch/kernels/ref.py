@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three kernels.
+"""Plain PyTorch versions of the four kernels.
 
 Each computes what its CUDA kernel computes, on any device.  The wrappers in
 ``kernels/ops.py`` run them for CPU tensors; on the card they serve only as
@@ -7,7 +7,9 @@ calls, so a run can show that its main path did not take them.
 
 ``lut16_adc_plain`` adds the subspace terms in the kernels' order
 (k = 0..K-1, starting from +0), so on the same inputs it matches K1 bit for
-bit.
+bit.  ``inverted_value_forward_plain`` takes each (query, row) sum in
+stream order from +0, as B4 does, so it matches B4 (and the port's
+``score_inverted``) bit for bit.
 """
 
 from __future__ import annotations
@@ -17,10 +19,11 @@ import torch
 from .lut16 import unpack_codes
 
 __all__ = ["lut16_adc_plain", "lut16_adc_topk_plain", "block_sparse_plain",
-           "stable_topk", "PLAIN_CALLS"]
+           "inverted_value_forward_plain", "stable_topk", "PLAIN_CALLS"]
 
 PLAIN_CALLS = dict.fromkeys(
-    ("lut16_adc", "lut16_adc_topk", "block_sparse_matmul"), 0)
+    ("lut16_adc", "lut16_adc_topk", "block_sparse_matmul",
+     "inverted_value_forward"), 0)
 
 
 def stable_topk(x: torch.Tensor, k: int):
@@ -83,3 +86,50 @@ def block_sparse_plain(q: torch.Tensor, tiles: torch.Tensor, ptr: torch.Tensor,
             out[:, row_block[sel], :] += torch.einsum(
                 "qc,trc->qtr", qb[:, j, :], tiles[sel].float())
     return out.reshape(nq, nb * br)
+
+
+def inverted_value_forward_plain(ptr: torch.Tensor, rows: torch.Tensor,
+                                 qidx: torch.Tensor, contrib: torch.Tensor, *,
+                                 bq: int, bn: int, chunk: int,
+                                 num_row_blocks: int) -> torch.Tensor:
+    """Accumulate a value-forward stream (``build_value_forward_stream``)
+    into (QB * bq, num_row_blocks * bn) f32 scores.
+
+    ptr (QB*(NB+1),) int32 chunk offsets; rows/qidx/contrib (QB, P_pad):
+    block-local row ids (pad = bn), query index within the block, and the
+    contributions.  Each (query, row) sum is taken in stream order from +0:
+    the entries are scattered by their rank inside their (query, row)
+    group, one rank per scatter, so no scatter meets a target twice and no
+    atomic order can change a bit."""
+    PLAIN_CALLS["inverted_value_forward"] += 1
+    qb, p_pad = rows.shape
+    nb = num_row_blocks
+    dev = rows.device
+    width = nb * bn
+    out = torch.zeros(qb * bq * width, dtype=torch.float32, device=dev)
+    seg = ptr.long().reshape(qb, nb + 1) * chunk                # entry offsets
+    pos = torch.arange(p_pad, device=dev)
+    # row block of each stream position; valid inside [seg[0], seg[nb])
+    j = torch.searchsorted(seg.contiguous(),
+                           pos.expand(qb, p_pad).contiguous(), right=True) - 1
+    r = rows.long()
+    valid = (pos[None] < seg[:, nb:]) & (r < bn) & (j >= 0)
+    b = torch.arange(qb, device=dev)[:, None].expand(qb, p_pad)
+    key = ((b * bq + qidx.long()) * width + j.clamp(0, nb - 1) * bn
+           + r.clamp(0, bn - 1))[valid]
+    val = contrib.float()[valid]
+    if key.numel() == 0:
+        return out.reshape(qb * bq, width)
+    # rank of each entry among the entries of its key, in stream order
+    sk, order = torch.sort(key, stable=True)
+    first = torch.ones_like(sk, dtype=torch.bool)
+    first[1:] = sk[1:] != sk[:-1]
+    start = torch.cummax(torch.where(first, torch.arange(sk.numel(),
+                                                         device=dev), 0),
+                         dim=0).values
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(sk.numel(), device=dev) - start
+    for k in range(int(rank.max()) + 1):
+        sel = rank == k
+        out.scatter_add_(0, key[sel], val[sel])
+    return out.reshape(qb * bq, width)

@@ -191,8 +191,9 @@ def test_build_params_and_unported_paths(small_hybrid):
     ds = small_hybrid
     assert HybridIndexParams().resolve_backend().value == "cuda"
     assert HybridIndexParams(backend="pallas-packed").resolve_pack()
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        HybridIndex.build(ds.x_sparse, ds.x_dense, mutable=True, device="cpu")
+    mutable = HybridIndex.build(ds.x_sparse[:300], ds.x_dense[:300],
+                                mutable=True, device="cpu")
+    assert mutable.mutable_state.live_rows == 300
     with pytest.raises(NotImplementedError, match="queue A item 8"):
         HybridIndex.load("nowhere")
     if not torch.cuda.is_available():

@@ -216,6 +216,10 @@ def test_cpu_tensors_take_plain_versions():
     tiles, ptr, col = dense_to_bcsr(np.ones((128, 128), np.float32), 128, 128)
     ops.block_sparse_matmul_bcsr(torch.ones((2, 128)), torch.from_numpy(tiles),
                                  torch.from_numpy(ptr), torch.from_numpy(col))
+    stream = torch.zeros((1, 4), dtype=torch.int32)
+    ops.inverted_value_forward(torch.tensor([0, 1], dtype=torch.int32),
+                               stream, stream, torch.ones((1, 4)), bq=1, bn=4,
+                               chunk=4, num_row_blocks=1)
     assert all(v == 0 for v in ops.LAUNCHES.values())
     assert all(v == 1 for v in ref.PLAIN_CALLS.values())
     ops.reset_counts()
