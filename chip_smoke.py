@@ -34,6 +34,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -45,6 +46,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
+TF32_OPS_PER_S = 495e12         # H100 SXM dense TF32 on the tensor cores
 RTOL, ATOL = 1e-5, 1e-4         # the JAX package's kernel-vs-oracle tolerance
 
 
@@ -64,8 +66,10 @@ def smi_line() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, runs: int = 20, warmup: int = 3) -> float:
-    """Median of ``runs`` CUDA-event timings of ``fn()`` after warm-up."""
+def cuda_ms(fn, runs: int = 20, warmup: int = 3, batch: int = 1) -> float:
+    """Median of ``runs`` CUDA-event timings of ``fn()`` after warm-up.  With
+    ``batch`` > 1 each timing spans that many back-to-back calls and is
+    divided by it, so the host's launch work hides behind queued device work."""
     import torch
     for _ in range(warmup):
         fn()
@@ -74,10 +78,11 @@ def cuda_ms(fn, runs: int = 20, warmup: int = 3) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(batch):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / batch)
     return statistics.median(times)
 
 
@@ -318,28 +323,94 @@ def edge_cases_lut16(torch, ops, ref):
 
 
 def edge_cases_block_sparse(torch, ops, ref):
+    """K3 against its plain version at ragged shapes: Q below one n8 tile,
+    exactly one, either side of the small-Q layout's 16, inside one query
+    group and past it (130: a second group on blockIdx.y); one to four
+    column blocks, the last row block holding all of its tiles; more row
+    blocks than SMs, with tiles dropped at random, so that a persistent CTA
+    walks several row blocks, keeps its query slice or reloads it; positive
+    lognormal values over 1e-3..1e3, like the head's weights, also at
+    D_pad = 512, where a sum carried through the tensor cores' truncating
+    accumulation would leave rtol.  Each case has an empty row block and a
+    zero tile that BCSR drops; each must hold the tolerance, leave the
+    empty row block zero, and give the same bits on a second launch."""
     from repro_torch.kernels.block_sparse import dense_to_bcsr
     g = torch.Generator(device="cuda").manual_seed(12)
-    cases = 0
-    for nb, db, q in ((7, 1, 5), (5, 2, 37), (3, 3, 64)):
-        block = torch.randn((nb * 128, db * 128), generator=g, device="cuda")
+
+    def values(shape, positive):
+        if not positive:
+            return torch.randn(shape, generator=g, device="cuda")
+        return torch.exp(2.3 * torch.randn(shape, generator=g, device="cuda")
+                         ).clamp(1e-3, 1e3)
+
+    cases = []
+    for nb, db, q, positive in ((7, 1, 5, False), (5, 2, 37, False),
+                                (3, 3, 64, False), (4, 3, 1, False),
+                                (6, 2, 8, False), (5, 2, 16, False),
+                                (5, 2, 17, False), (6, 3, 130, False),
+                                (300, 2, 37, False), (5, 3, 37, True),
+                                (300, 1, 130, True), (64, 4, 128, True)):
+        block = values((nb * 128, db * 128), positive)
+        if nb > 100:                          # drop a third of the tiles
+            drop = torch.rand((nb - 1, db), generator=g, device="cuda") < 0.33
+            view = block[:-128].view(nb - 1, 128, db, 128)
+            view.mul_(~drop[:, None, :, None])
         block[128:256] = 0.0                  # a row block with no tiles
         block[:128, :128] = 0.0               # a zero tile
         tiles, ptr, col = (torch.from_numpy(a).cuda() for a in dense_to_bcsr(
             block.cpu().numpy(), 128, 128))
-        qh = torch.randn((q, db * 128), generator=g, device="cuda")
+        check(int(ptr[-1] - ptr[-2]) == db, "last row block not full")
+        qh = values((q, db * 128), positive)
         got = ops.block_sparse_matmul_bcsr(qh, tiles, ptr, col)
         want = ref.block_sparse_plain(qh, tiles, ptr, col)
-        assert_close(got, want, f"K3 at {(nb, db, q)}")
+        shape = (nb, db, q, "lognormal" if positive else "normal")
+        err = assert_close(got, want, f"K3 at {shape}")
         check(bool((got[:, 128:256] == 0).all()), "empty row block not zero")
-        cases += 1
+        check(torch.equal(got, ops.block_sparse_matmul_bcsr(qh, tiles, ptr,
+                                                            col)),
+              f"K3 at {shape}: two launches differ")
+        cases.append({"shape": shape, "tiles": int(ptr[-1]),
+                      "max_abs_err": err,
+                      "max_rel_err": float(((got - want).abs()
+                                            / want.abs().clamp_min(1e-30))
+                                           .max())})
     return cases
 
 
-def kernel_row(name, source, replaces, launches, m, nbytes, nops) -> dict:
+def k3_ptxas(log: str) -> dict:
+    """Registers, static shared memory and spills of each K3 instantiation
+    (``block_sparse_kernel<WM,NT,STAGES>``) from nvcc's ``-Xptxas -v``
+    report of block_sparse.cu."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:entry function|Function properties for) '?(\w+)",
+                      ln)
+        if m:
+            k = re.search(r"block_sparse_kernelI((?:Li\d+E)+)E", m.group(1))
+            args = ",".join(re.findall(r"\d+", k.group(1))) if k else ""
+            cur = f"block_sparse_kernel<{args}>" if k else None
+            continue
+        if cur is None:
+            continue
+        e = out.setdefault(cur, {})
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            e["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", ln)
+        if m:
+            e["static_smem_bytes"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            e["spill_stores"], e["spill_loads"] = map(int, m.groups())
+    return out
+
+
+def kernel_row(name, source, replaces, launches, m, nbytes, nops,
+               ops_per_s=F32_OPS_PER_S) -> dict:
     """One entry of the ``kernels`` line; the bound is the larger of the
-    bytes over the memory rate and the operations over the f32 rate."""
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_OPS_PER_S * 1e3
+    bytes over the memory rate and the operations over ``ops_per_s`` (the
+    f32 rate outside the tensor cores unless the kernel runs elsewhere)."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / ops_per_s * 1e3
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
@@ -351,8 +422,9 @@ def kernel_row(name, source, replaces, launches, m, nbytes, nops) -> dict:
 def run_kernels(torch, idx, queries, launches, c1):
     from repro_torch.core.engine import pass1_bias, scatter_head_queries
     from repro_torch.core.pq import adc_lut
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import _build, ops
     from repro_torch.kernels import ref
+    from repro_torch.kernels.block_sparse import _smem_bytes
 
     arrays = idx.engine.arrays
     q_dims, q_vals, q_dense = queries
@@ -398,18 +470,45 @@ def run_kernels(torch, idx, queries, launches, c1):
     k2_bytes = n * kc + 4 * nq * n
     k2_ops = nq * n * (k_sub + 1)
 
-    # K3
+    # K3, at the slice's Q = 128 and at the online callers' Q = 1 and 8
     got = ops.block_sparse_matmul_bcsr(q_head, tiles, ptr, col)
+    check(torch.equal(got, ops.block_sparse_matmul_bcsr(q_head, tiles, ptr,
+                                                        col)),
+          "K3: two launches at the slice shapes differ")
     want = ref.block_sparse_plain(q_head, tiles, ptr, col)
     dense_block = arrays.head.block
-    k3 = dict(ms=cuda_ms(lambda: ops.block_sparse_matmul_bcsr(q_head, tiles,
-                                                              ptr, col)),
+
+    def k3_bytes(qn):
+        return 4 * (t_real * 128 * 128 + qn * n_pad + qn * q_head.shape[1])
+
+    def k3_ops(qn):
+        return 2 * qn * t_real * 128 * 128
+
+    k3_by_q = {}
+    for qn in (1, 8, nq):
+        qs = q_head[:qn]
+        err = assert_close(ops.block_sparse_matmul_bcsr(qs, tiles, ptr, col),
+                           want[:qn], f"K3 at Q = {qn}")
+        def k3_call():
+            return ops.block_sparse_matmul_bcsr(qs, tiles, ptr, col)
+
+        def lib_call():
+            return torch.matmul(qs, dense_block.T)
+
+        # ms and library_ms time one call, as every other kernel's; the
+        # _batched pair beside them is the mean of 10 back-to-back calls
+        k3_by_q[str(qn)] = {
+            "ms": cuda_ms(k3_call), "library_ms": cuda_ms(lib_call),
+            "ms_batched": cuda_ms(k3_call, batch=10),
+            "library_ms_batched": cuda_ms(lib_call, batch=10),
+            "bound_ms": max(k3_bytes(qn) / HBM_BYTES_PER_S,
+                            3 * k3_ops(qn) / TF32_OPS_PER_S) * 1e3,
+            "max_abs_err": err}
+    k3 = dict(ms=k3_by_q[str(nq)]["ms"],
               plain_ms=cuda_ms(lambda: ref.block_sparse_plain(q_head, tiles,
                                                               ptr, col)),
-              library_ms=cuda_ms(lambda: torch.matmul(q_head, dense_block.T)),
+              library_ms=k3_by_q[str(nq)]["library_ms"],
               max_abs_err=assert_close(got, want, "K3 at the slice shapes"))
-    k3_bytes = 4 * (t_real * 128 * 128 + nq * n_pad + nq * q_head.shape[1])
-    k3_ops = 2 * nq * t_real * 128 * 128
 
     edge_lut = edge_cases_lut16(torch, ops, ref)
     edge_bs = edge_cases_block_sparse(torch, ops, ref)
@@ -424,12 +523,23 @@ def run_kernels(torch, idx, queries, launches, c1):
         kernel_row("block_sparse_matmul",
                    "src/repro_torch/csrc/block_sparse.cu",
                    "src/repro/kernels/block_sparse.py:83",
-                   launches["block_sparse_matmul"], k3, k3_bytes, k3_ops),
+                   launches["block_sparse_matmul"], k3, k3_bytes(nq),
+                   3 * k3_ops(nq), TF32_OPS_PER_S),
     ]
+    # the bound at the port's tolerance is 3xTF32 on the tensor cores; the
+    # f32 CUDA-core bound stays beside it, comparable with earlier runs
+    rows[2].update(
+        bound_f32_ms=max(k3_bytes(nq) / HBM_BYTES_PER_S,
+                         k3_ops(nq) / F32_OPS_PER_S) * 1e3,
+        ptxas={"dynamic_smem_bytes": {f"Q={qn}": _smem_bytes(qn)
+                                      for qn in (1, nq)},
+               **k3_ptxas(_build.build()["ptxas"]["block_sparse"])},
+        by_q=k3_by_q)
     emit("kernels_checked", slice_shapes={"Q": nq, "N": n, "Kc": kc, "K": k_sub,
                                           "k": c1, "tiles": t_real,
                                           "N_pad": n_pad},
-         edge_cases_lut16=edge_lut, edge_cases_block_sparse=edge_bs,
+         edge_cases_lut16=edge_lut, edge_cases_block_sparse=len(edge_bs),
+         block_sparse_cases=edge_bs,
          tolerance={"rtol": RTOL, "atol": ATOL})
     return rows
 

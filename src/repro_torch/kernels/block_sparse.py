@@ -4,7 +4,7 @@ and B4.
 K3 (``csrc/block_sparse.cu:block_sparse_kernel``) replaces
 ``repro/kernels/block_sparse.py:block_sparse_matmul_pallas``: ``q @ X^T``
 over the nonzero 128 x 128 tiles of the cache-sorted head block, in BCSR
-order.  Zero tiles are never read.
+order, on the tensor cores as 3xTF32.  Zero tiles are never read.
 
 B4 (``csrc/block_sparse.cu:inverted_value_forward_kernel``) replaces
 ``repro/kernels/block_sparse.py:inverted_value_forward_pallas``: it
@@ -35,6 +35,7 @@ _SIGNATURES = {
     "block_sparse_matmul_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
     "inverted_value_forward_launch": (
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
+    "block_sparse_matmul_smem_bytes": ([_I], _I),
     "block_sparse_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -65,10 +66,13 @@ def dense_to_bcsr(x: np.ndarray, br: int, bc: int):
 
 def block_sparse_cuda(q: torch.Tensor, tiles: torch.Tensor, ptr: torch.Tensor,
                       col: torch.Tensor) -> torch.Tensor:
-    """Launch K3: q (Q, D_pad) f32 -> (Q, N_pad) f32, N_pad = 128 * NB."""
+    """Launch K3: q (Q, D_pad) f32 -> (Q, N_pad) f32, N_pad = 128 * NB.
+    The kernel copies q and the tiles 16 bytes at a time."""
     lib = _build.load("block_sparse", _SIGNATURES)
     nq, d_pad = q.shape
     nb = ptr.shape[0] - 1
+    if q.data_ptr() % 16 or tiles.data_ptr() % 16:
+        raise ValueError("K3 takes q and tiles at 16-byte aligned addresses")
     out = torch.empty((nq, nb * TILE), dtype=torch.float32, device=q.device)
     code = lib.block_sparse_matmul_launch(
         q.data_ptr(), tiles.data_ptr(), ptr.data_ptr(), col.data_ptr(),
@@ -79,6 +83,13 @@ def block_sparse_cuda(q: torch.Tensor, tiles: torch.Tensor, ptr: torch.Tensor,
             f"block_sparse_matmul launch failed: CUDA error {code} "
             f"({lib.block_sparse_error_string(code).decode()})")
     return out
+
+
+def _smem_bytes(nq: int) -> int:
+    """Dynamic shared memory of one K3 CTA at ``nq`` queries, in bytes (a
+    figure for ``chip_smoke.py``'s report)."""
+    return _build.load("block_sparse",
+                       _SIGNATURES).block_sparse_matmul_smem_bytes(nq)
 
 
 def inverted_value_forward_cuda(ptr: torch.Tensor, rows: torch.Tensor,

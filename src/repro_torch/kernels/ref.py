@@ -9,7 +9,8 @@ calls, so a run can show that its main path did not take them.
 (k = 0..K-1, starting from +0), so on the same inputs it matches K1 bit for
 bit.  ``inverted_value_forward_plain`` takes each (query, row) sum in
 stream order from +0, as B4 does, so it matches B4 (and the port's
-``score_inverted``) bit for bit.
+``score_inverted``) bit for bit.  ``tf32_split`` is K3's operand split,
+done on the f32 bits as ``cvt.rna.tf32.f32`` does it.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ import torch
 from .lut16 import unpack_codes
 
 __all__ = ["lut16_adc_plain", "lut16_adc_topk_plain", "block_sparse_plain",
-           "inverted_value_forward_plain", "stable_topk", "PLAIN_CALLS"]
+           "inverted_value_forward_plain", "stable_topk", "tf32_split",
+           "PLAIN_CALLS"]
 
 PLAIN_CALLS = dict.fromkeys(
     ("lut16_adc", "lut16_adc_topk", "block_sparse_matmul",
@@ -86,6 +88,25 @@ def block_sparse_plain(q: torch.Tensor, tiles: torch.Tensor, ptr: torch.Tensor,
             out[:, row_block[sel], :] += torch.einsum(
                 "qc,trc->qtr", qb[:, j, :], tiles[sel].float())
     return out.reshape(nq, nb * br)
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """Round f32 to TF32 (10 mantissa bits), to nearest with ties away from
+    zero: add half of the 13 dropped bits' weight to the magnitude and clear
+    them.  The sign bit sits apart, so adding to the bit pattern rounds the
+    magnitude whatever the sign."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = (bits + 0x1000) & 0xFFFFE000
+    bits = torch.where(bits >= 1 << 31, bits - (1 << 32), bits)
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3's 3xTF32 operand split: ``hi = rna(x)``, ``lo = rna(x - hi)``,
+    both TF32 values held in f32, with ``|x - hi - lo| <= 2^-22 |x|``."""
+    x = x.float()
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x - hi)
 
 
 def inverted_value_forward_plain(ptr: torch.Tensor, rows: torch.Tensor,
