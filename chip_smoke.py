@@ -59,6 +59,14 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def smi_clock_mhz() -> float:
+    """The SM clock's maximum as nvidia-smi reports it (MHz)."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+
+
 def smi_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -140,9 +148,17 @@ def profile_search(torch, idx, ds, nq, h, alpha, beta, runs=3):
     if device_ms == 0:
         return {"device_ms": "not measured (profiler saw no device time)"}
     per_kernel.sort(key=lambda r: -r[1])
+
+    def share(name):
+        rows = [(ms, c) for k, ms, c in per_kernel if name in k]
+        return {"ms": sum(ms for ms, _ in rows),
+                "calls": sum(c for _, c in rows)}
+
     return {"wall_ms": wall * 1e3, "device_ms": device_ms,
             "busy_share": device_ms / (wall * 1e3),
             "kernel_launches": sum(c for _, _, c in per_kernel),
+            "k2": {"partial": share("lut16_topk_partial_kernel"),
+                   "merge": share("topk_merge_kernel")},
             "top": [{"kernel": k[:80], "ms": ms, "calls": c}
                     for k, ms, c in per_kernel[:10]]}
 
@@ -257,7 +273,16 @@ def run_slice(args, torch):
          packed_max_abs_err=packed_err, c1_2000_routes_k1=True,
          search_latency=latency, search_profile=profiles,
          max_memory_allocated=torch.cuda.max_memory_allocated())
-    return idx, ds, (q_dims, q_vals, q_dense), launches, c1, res
+    return idx, ds, (q_dims, q_vals, q_dense), launches, c1, res, profiles
+
+
+def k2_profile_split(profiles) -> dict:
+    """K2's device time per search in the profile, split between its
+    partial kernel and its merge rounds."""
+    return {nq: {"partial_ms": p["k2"]["partial"]["ms"],
+                 "merge_ms": p["k2"]["merge"]["ms"],
+                 "merge_launches": p["k2"]["merge"]["calls"]}
+            for nq, p in profiles.items() if "k2" in p}
 
 
 # ---------------------------------------------------------------------------
@@ -322,6 +347,90 @@ def edge_cases_lut16(torch, ops, ref):
     return cases
 
 
+def edge_cases_k2_threshold(torch, ops, ref) -> dict:
+    """K2 against inputs that attack its shared per-query threshold, at Q =
+    1, 8 and 130 (two query blocks of the grid's x past 128), k = 1, 500 and
+    1024, over N = 40000 rows (several row ranges at every k):
+
+    - rising: scores rise with the row id, so every row beats every
+      threshold (the most staging);
+    - all_equal: every row has the same codes and no bias, so all rows tie
+      and the lowest ids must win across every range boundary;
+    - planted_ties: a zero LUT and integer scores below 0, with 0 in the
+      last cbuf rows and in rows spread over all ranges: exact ties at the
+      cbuf-th score, which the last range alone can publish;
+    - neginf: a -inf mask on all but k - 1 rows;
+
+    and k == N with a mask at each Q.  In each case K2 must equal K1 +
+    stable sort bit for bit, its ids the plain version's, and two launches
+    must give the same bits."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    n = 40000
+    counts: dict[str, int] = {}
+
+    def run(kind, stored, lut, k, bias, mask, packed):
+        kw = dict(bias=bias, row_mask=mask, packed=packed)
+        s, i = ops.lut16_adc_topk(stored, lut, k, **kw)
+        s2, i2 = ops.lut16_adc_topk(stored, lut, k, **kw)
+        check(torch.equal(s, s2) and torch.equal(i, i2),
+              f"K2 {kind} q={lut.shape[0]} k={k}: two launches differ")
+        sm, im = ops.lut16_adc_topk(stored, lut, k, fused=False, **kw)
+        check(torch.equal(s, sm) and torch.equal(i, im),
+              f"K2 {kind} q={lut.shape[0]} k={k} != K1 + stable sort")
+        base = bias
+        if mask is not None:
+            base = mask[None] if base is None else base + mask[None]
+        lut_p = ops._validate_packed(stored.shape[1], lut.shape[1], 16, lut,
+                                     packed)
+        _, pi = ops._normalize(*ref.lut16_adc_topk_plain(stored, lut_p, base,
+                                                         k, packed=packed))
+        check(torch.equal(i, pi),
+              f"K2 {kind} q={lut.shape[0]} k={k}: ids != plain")
+        counts[kind] = counts.get(kind, 0) + 1
+        return i
+
+    for q, k_sub, packed in ((1, 100, False), (8, 100, False), (130, 99, True)):
+        codes = torch.randint(0, 16, (n, k_sub), generator=g, device="cuda",
+                              dtype=torch.uint8)
+
+        def store(c, packed=packed):
+            return (torch.from_numpy(ops.pack_codes(c.cpu().numpy())).cuda()
+                    if packed else c)
+
+        stored = store(codes)
+        same = store(codes[:1].expand(n, k_sub).contiguous())
+        lut = torch.randn((q, k_sub, 16), generator=g, device="cuda")
+        zero = torch.zeros_like(lut)
+        rows = torch.arange(n, device="cuda", dtype=torch.float32)
+        for k in (1, 500, 1024):
+            cbuf = ops.candidate_buffer_width(k)
+            run("rising", stored, lut, k, (256.0 * rows).expand(q, n)
+                .contiguous(), None, packed)
+            i = run("all_equal", same, lut, k, None, None, packed)
+            check(bool((i == torch.arange(k, device="cuda",
+                                          dtype=torch.int32)).all()),
+                  "all_equal: not the lowest ids")
+            bias = -1.0 - torch.floor(20 * torch.rand((q, n), generator=g,
+                                                      device="cuda"))
+            bias[:, n - cbuf:] = 0.0
+            bias[:, 37::n // 64] = 0.0
+            i = run("planted_ties", stored, zero, k, bias, None, packed)
+            tied = torch.nonzero(bias[0] == 0.0)[:k, 0].int()
+            check(bool((i == tied[None]).all()),
+                  "planted ties: not the lowest ids")
+            mask = torch.full((n,), -torch.inf, device="cuda")
+            mask[torch.randperm(n, generator=g, device="cuda")[:k - 1]] = 0.0
+            i = run("neginf", stored, lut, k, None, mask, packed)
+            check(int((i >= 0).sum()) == q * (k - 1), "neginf: live count")
+        # k == N under a mask: one range, every row selected, masked ids -1
+        small = stored[:1000]
+        mask = torch.zeros(1000, device="cuda")
+        mask[torch.randperm(1000, generator=g, device="cuda")[:300]] = -torch.inf
+        run("k_equals_n", small, lut, 1000, None, mask, packed)
+    counts["total"] = sum(counts.values())
+    return counts
+
+
 def edge_cases_block_sparse(torch, ops, ref):
     """K3 against its plain version at ragged shapes: Q below one n8 tile,
     exactly one, either side of the small-Q layout's 16, inside one query
@@ -377,18 +486,23 @@ def edge_cases_block_sparse(torch, ops, ref):
     return cases
 
 
-def k3_ptxas(log: str) -> dict:
-    """Registers, static shared memory and spills of each K3 instantiation
-    (``block_sparse_kernel<WM,NT,STAGES>``) from nvcc's ``-Xptxas -v``
-    report of block_sparse.cu."""
+def ptxas_report(log: str, kernels: tuple[str, ...]) -> dict:
+    """Registers, static shared memory and spills of each instantiation of
+    the named kernels (``block_sparse_kernel<WM,NT,STAGES>``,
+    ``lut16_topk_partial_kernel<BQ,PACKED>``, ...) from nvcc's
+    ``-Xptxas -v`` report of one source."""
     out, cur = {}, None
     for ln in log.splitlines():
         m = re.search(r"(?:entry function|Function properties for) '?(\w+)",
                       ln)
         if m:
-            k = re.search(r"block_sparse_kernelI((?:Li\d+E)+)E", m.group(1))
-            args = ",".join(re.findall(r"\d+", k.group(1))) if k else ""
-            cur = f"block_sparse_kernel<{args}>" if k else None
+            cur = None
+            for name in kernels:
+                k = re.search(rf"\d{name}(?:I((?:L[ib]\d+E)+)E)?", m.group(1))
+                if k:
+                    args = ",".join(re.findall(r"L[ib](\d+)E", k.group(1) or ""))
+                    cur = f"{name}<{args}>" if args else name
+                    break
             continue
         if cur is None:
             continue
@@ -425,6 +539,7 @@ def run_kernels(torch, idx, queries, launches, c1):
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import ref
     from repro_torch.kernels.block_sparse import _smem_bytes
+    from repro_torch.kernels.lut16 import topk_ctas_per_sm, topk_smem_bytes
 
     arrays = idx.engine.arrays
     q_dims, q_vals, q_dense = queries
@@ -463,12 +578,52 @@ def run_kernels(torch, idx, queries, launches, c1):
           "K2 != K1 + stable sort at the slice shapes")
     ps, pi = ops._normalize(*ref.lut16_adc_topk_plain(codes, lut, bias, c1))
     check(torch.equal(i, pi), "K2 ids != plain at the slice shapes")
+    check(all(torch.equal(a, b) for a, b in zip(
+        (s, i), ops.lut16_adc_topk(codes, lut, c1, bias=bias))),
+        "K2: two launches at the slice shapes differ")
     k2 = dict(ms=cuda_ms(lambda: ops.lut16_adc_topk(codes, lut, c1, bias=bias)),
               plain_ms=cuda_ms(lambda: ref.lut16_adc_topk_plain(codes, lut,
                                                                 bias, c1)),
               library_ms=None, max_abs_err=assert_close(s, ps, "K2 scores"))
-    k2_bytes = n * kc + 4 * nq * n
-    k2_ops = nq * n * (k_sub + 1)
+
+    def k2_bytes(qn):
+        return n * kc + 4 * qn * n
+
+    def k2_ops(qn):
+        return qn * n * (k_sub + 1)
+
+    # K2 against the route fusion has to beat: the port's own materialised
+    # pass 1 (K1 + stable sort), one call a reading, at Q = 1, 8 and 128
+    k2_by_q = {}
+    for qn in (1, 8, nq):
+        lq, bq_ = lut[:qn], bias[:qn]
+        k2_by_q[str(qn)] = {
+            "ms": cuda_ms(lambda: ops.lut16_adc_topk(codes, lq, c1, bias=bq_)),
+            "materialised_ms": cuda_ms(lambda: ops.lut16_adc_topk(
+                codes, lq, c1, bias=bq_, fused=False)),
+            "bound_ms": max(k2_bytes(qn) / HBM_BYTES_PER_S,
+                            k2_ops(qn) / F32_OPS_PER_S) * 1e3}
+    cbuf = ops.candidate_buffer_width(c1)
+    bq_k2, rows_k2 = ops._resolve_topk_blocks(nq, n, kc, k_sub, False, cbuf,
+                                              codes.device)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_mhz = smi_clock_mhz()
+    k2_extra = {
+        "materialised_ms": k2_by_q[str(nq)]["materialised_ms"],
+        "by_q": k2_by_q,
+        "ptxas": {
+            "dynamic_smem_bytes": topk_smem_bytes(bq_k2, kc, k_sub, cbuf),
+            "ctas_per_sm": topk_ctas_per_sm(bq_k2, False, kc, k_sub, cbuf),
+            "bq": bq_k2, "rows_per_cta": rows_k2,
+            "ranges": -(-n // rows_k2),
+            **ptxas_report(_build.build()["ptxas"]["lut16"],
+                           ("lut16_topk_partial_kernel", "topk_merge_kernel",
+                            "lut16_adc_kernel"))},
+        # the scan's shared-memory floor: one 4-byte LUT read per (query,
+        # row, subspace) at 128 B per clock per SM
+        "smem_floor_ms": nq * n * k_sub * 4 / (sms * 128 * clock_mhz * 1e6)
+        * 1e3,
+        "smem_floor_clock_mhz": clock_mhz}
 
     # K3, at the slice's Q = 128 and at the online callers' Q = 1 and 8
     got = ops.block_sparse_matmul_bcsr(q_head, tiles, ptr, col)
@@ -511,6 +666,7 @@ def run_kernels(torch, idx, queries, launches, c1):
               max_abs_err=assert_close(got, want, "K3 at the slice shapes"))
 
     edge_lut = edge_cases_lut16(torch, ops, ref)
+    edge_k2 = edge_cases_k2_threshold(torch, ops, ref)
     edge_bs = edge_cases_block_sparse(torch, ops, ref)
 
     rows = [
@@ -519,7 +675,7 @@ def run_kernels(torch, idx, queries, launches, c1):
                    k1, k1_bytes, k1_ops),
         kernel_row("lut16_adc_topk", "src/repro_torch/csrc/lut16.cu",
                    "src/repro/kernels/lut16.py:216",
-                   launches["lut16_adc_topk"], k2, k2_bytes, k2_ops),
+                   launches["lut16_adc_topk"], k2, k2_bytes(nq), k2_ops(nq)),
         kernel_row("block_sparse_matmul",
                    "src/repro_torch/csrc/block_sparse.cu",
                    "src/repro/kernels/block_sparse.py:83",
@@ -533,12 +689,15 @@ def run_kernels(torch, idx, queries, launches, c1):
                          k3_ops(nq) / F32_OPS_PER_S) * 1e3,
         ptxas={"dynamic_smem_bytes": {f"Q={qn}": _smem_bytes(qn)
                                       for qn in (1, nq)},
-               **k3_ptxas(_build.build()["ptxas"]["block_sparse"])},
+               **ptxas_report(_build.build()["ptxas"]["block_sparse"],
+                              ("block_sparse_kernel",))},
         by_q=k3_by_q)
+    rows[1].update(k2_extra)
     emit("kernels_checked", slice_shapes={"Q": nq, "N": n, "Kc": kc, "K": k_sub,
                                           "k": c1, "tiles": t_real,
                                           "N_pad": n_pad},
-         edge_cases_lut16=edge_lut, edge_cases_block_sparse=len(edge_bs),
+         edge_cases_lut16=edge_lut, edge_cases_k2_threshold=edge_k2,
+         edge_cases_block_sparse=len(edge_bs),
          block_sparse_cases=edge_bs,
          tolerance={"rtol": RTOL, "atol": ATOL})
     return rows
@@ -956,8 +1115,9 @@ def main() -> int:
              for name, log in info["ptxas"].items()}
     emit("build", seconds=info["seconds"], built=info["built"], ptxas=ptxas)
 
-    idx, ds, queries, launches, c1, res = run_slice(args, torch)
+    idx, ds, queries, launches, c1, res, profiles = run_slice(args, torch)
     rows = run_kernels(torch, idx, queries, launches, c1)
+    rows[1]["profile_split"] = k2_profile_split(profiles)
     rows.append(run_value_forward(torch, idx, queries))
     params = idx.params
     del idx, queries

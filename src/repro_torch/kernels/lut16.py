@@ -4,9 +4,10 @@ K1 (``csrc/lut16.cu:lut16_adc_kernel``) replaces
 ``repro/kernels/lut16.py:lut16_adc_pallas`` and writes the (Q, N) matrix
 ``out[q, n] = sum_k lut[q, k, codes[n, k]]``.  K2
 (``lut16_topk_partial_kernel`` + ``topk_merge_kernel``) replaces
-``lut16_adc_topk_pallas``: per-CTA top-``cbuf`` lists of ``base + scan``
-merged pairwise, the (Q, N) matrix never written.  What bounds each and what
-the design does about it is noted in the CUDA source.
+``lut16_adc_topk_pallas``: per-range top-``cbuf`` lists of ``base + scan``,
+pruned by a per-query threshold that all CTAs share and merged 16 lists at a
+time, the (Q, N) matrix never written.  What bounds each and what the design
+does about it is noted in the CUDA source.
 
 The launchers here take tensors that ``kernels/ops.py`` has already checked
 and shaped: LUT (Q, kl, 16) f32 contiguous, codes (N, Kc) uint8 contiguous.
@@ -17,6 +18,7 @@ current stream.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -24,21 +26,22 @@ import torch
 from . import _build
 
 __all__ = ["candidate_buffer_width", "pack_codes", "unpack_codes",
-           "lut16_adc_cuda", "lut16_adc_topk_cuda", "topk_half_width",
-           "THREADS"]
+           "lut16_adc_cuda", "lut16_adc_topk_cuda", "THREADS"]
 
 THREADS = 256       # rows per chunk in csrc/lut16.cu (kThreads)
 LUT_WIDTH = 16      # LUT entries per subspace the kernels read
+MERGE_GROUP = 16    # partial lists one merge CTA reduces (kMergeGroup)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
     "lut16_adc_launch": ([_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _P], _I),
-    "lut16_topk_launch": ([_P, _P, _P, _LL, _P, _P, _P, _P, _LL, _I, _I, _I,
+    "lut16_topk_launch": ([_P, _P, _P, _LL, _P, _P, _P, _P, _P, _LL, _I, _I,
                            _I, _I, _I, _I, _I, _P], _I),
     "lut16_adc_smem_bytes": ([_I, _I, _I], _LL),
     "lut16_topk_smem_bytes": ([_I, _I, _I, _I], _LL),
+    "lut16_topk_ctas_per_sm": ([_I, _I, _I, _I, _I], _I),
     "lut16_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -47,12 +50,6 @@ def candidate_buffer_width(k: int) -> int:
     """Candidate-buffer width for a top-``k`` fused select: ``k`` rounded up
     to a multiple of 128 (at least 128), as in the JAX package."""
     return max(-(-k // 128) * 128, 128)
-
-
-def topk_half_width(cbuf: int) -> int:
-    """Per-query sort width of K2's shared-memory buffer (and of its staging
-    area): the next power of two >= cbuf, at least one chunk of rows."""
-    return max(1 << (cbuf - 1).bit_length(), THREADS)
 
 
 def pack_codes(codes):
@@ -112,8 +109,20 @@ def adc_smem_bytes(bq: int, kc: int, kl: int) -> int:
     return int(_lib().lut16_adc_smem_bytes(bq, kc, kl))
 
 
-def topk_smem_bytes(bq: int, kc: int, kl: int, half: int) -> int:
-    return int(_lib().lut16_topk_smem_bytes(bq, kc, kl, half))
+def topk_smem_bytes(bq: int, kc: int, kl: int, cbuf: int) -> int:
+    return int(_lib().lut16_topk_smem_bytes(bq, kc, kl, cbuf))
+
+
+@functools.lru_cache(maxsize=None)
+def topk_ctas_per_sm(bq: int, packed: bool, kc: int, kl: int,
+                     cbuf: int) -> int:
+    """CTAs of K2's partial kernel one SM holds at once (the CUDA occupancy
+    calculator, registers and shared memory both counted)."""
+    lib = _lib()
+    got = int(lib.lut16_topk_ctas_per_sm(bq, int(packed), kc, kl, cbuf))
+    if got < 0:
+        _check(lib, -got, "lut16_topk occupancy")
+    return got
 
 
 def lut16_adc_cuda(codes: torch.Tensor, lut: torch.Tensor, *, packed: bool,
@@ -140,16 +149,17 @@ def lut16_adc_topk_cuda(codes: torch.Tensor, lut: torch.Tensor,
     q, kl, _ = lut.shape
     parts = -(-n // rows_per_cta)
     dev = codes.device
+    thresholds = torch.zeros((q,), dtype=torch.int32, device=dev)
     scratch_a = torch.empty((q, parts, cbuf), dtype=torch.int64, device=dev)
-    scratch_b = torch.empty((q, -(-parts // 2), cbuf), dtype=torch.int64,
-                            device=dev)
+    scratch_b = torch.empty((q, -(-parts // MERGE_GROUP), cbuf),
+                            dtype=torch.int64, device=dev)
     out_s = torch.empty((q, cbuf), dtype=torch.float32, device=dev)
     out_i = torch.empty((q, cbuf), dtype=torch.int32, device=dev)
     base_qstride = n if base.shape[0] > 1 else 0
     code = lib.lut16_topk_launch(
         codes.data_ptr(), lut.data_ptr(), base.data_ptr(), base_qstride,
-        scratch_a.data_ptr(), scratch_b.data_ptr(), out_s.data_ptr(),
-        out_i.data_ptr(), n, kc, q, kl, int(packed), bq, rows_per_cta, cbuf,
-        topk_half_width(cbuf), _stream(codes))
+        thresholds.data_ptr(), scratch_a.data_ptr(), scratch_b.data_ptr(),
+        out_s.data_ptr(), out_i.data_ptr(), n, kc, q, kl, int(packed), bq,
+        rows_per_cta, cbuf, _stream(codes))
     _check(lib, code, "lut16_adc_topk")
     return out_s, out_i

@@ -18,7 +18,7 @@ from .block_sparse import (TILE, block_sparse_cuda, dense_to_bcsr,
                            inverted_value_forward_cuda)
 from .lut16 import (LUT_WIDTH, THREADS, adc_smem_bytes, candidate_buffer_width,
                     lut16_adc_cuda, lut16_adc_topk_cuda, pack_codes,
-                    topk_half_width, topk_smem_bytes, unpack_codes)
+                    topk_ctas_per_sm, topk_smem_bytes, unpack_codes)
 from .ref import (PLAIN_CALLS, block_sparse_plain,
                   inverted_value_forward_plain, lut16_adc_plain,
                   lut16_adc_topk_plain, stable_topk)
@@ -35,6 +35,9 @@ MAX_FUSED_CANDIDATES = 1024
 
 # Shared memory a block may opt into on Hopper (227 KB).
 _SMEM_LIMIT = 232448
+# K2's largest query block, and the grid's largest y dimension (its ranges).
+_TOPK_MAX_BQ = 4
+_MAX_GRID_Y = 65535
 
 LAUNCHES = dict.fromkeys(
     ("lut16_adc", "lut16_adc_topk", "block_sparse_matmul",
@@ -48,20 +51,18 @@ def reset_counts() -> None:
             d[key] = 0
 
 
-def _resolve_lut16_blocks(q: int, n: int, kc: int, kl: int, device,
-                          cbuf: int | None = None) -> tuple[int, int]:
-    """One block resolution for both LUT16 kernels: (bq, rows_per_cta).
+def _resolve_lut16_blocks(q: int, n: int, kc: int, kl: int,
+                          device) -> tuple[int, int]:
+    """K1's block resolution: (bq, rows_per_cta).
 
     bq: queries per CTA, the largest of 8, 4, 2, 1 that is not above the
     next power of two of Q and whose shared memory fits.  rows_per_cta: a
-    multiple of the 256-row chunk, sized for about eight CTAs per SM (K1)
-    or four (K2, which also keeps at least 8 * cbuf rows per CTA so that the
-    partial lists stay far smaller than N).  Neither choice changes a score:
-    every (query, row) sum is taken in subspace order whatever the blocks."""
+    multiple of the 256-row chunk, sized for about eight CTAs per SM.
+    Neither choice changes a score: every (query, row) sum is taken in
+    subspace order whatever the blocks."""
     bq = min(8, 1 << max(q - 1, 0).bit_length())
     while True:
-        smem = (adc_smem_bytes(bq, kc, kl) if cbuf is None else
-                topk_smem_bytes(bq, kc, kl, topk_half_width(cbuf)))
+        smem = adc_smem_bytes(bq, kc, kl)
         if smem <= _SMEM_LIMIT:
             break
         if bq == 1:
@@ -70,11 +71,40 @@ def _resolve_lut16_blocks(q: int, n: int, kc: int, kl: int, device,
         bq //= 2
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     q_blocks = -(-q // bq)
-    ctas = (8 if cbuf is None else 4) * sms
-    rows = -(-n * q_blocks // ctas)
-    if cbuf is not None:
-        rows = max(rows, 8 * cbuf)
+    rows = -(-n * q_blocks // (8 * sms))
     return bq, max(-(-rows // THREADS) * THREADS, THREADS)
+
+
+def _resolve_topk_blocks(q: int, n: int, kc: int, kl: int, packed: bool,
+                         cbuf: int, device) -> tuple[int, int]:
+    """K2's block resolution: (bq, rows_per_cta).
+
+    bq: at most 4 queries per CTA (one warp merges each query's candidates;
+    at K = 100, cbuf = 512 four queries keep three CTAs on an SM, where
+    eight would fit one), the largest of 4, 2, 1 not above the next power
+    of two of Q whose shared memory fits.  rows_per_cta: a multiple of the
+    256-row chunk such that all CTAs fit in one wave on the card (every
+    range then starts at once and the slowest sets the time), at least
+    8 * cbuf rows (so the partial lists stay far smaller than N) and few
+    enough ranges for the grid's y dimension.  No choice changes a result:
+    the selection is exact for any ranges."""
+    bq = min(_TOPK_MAX_BQ, 1 << max(q - 1, 0).bit_length())
+    while True:
+        smem = topk_smem_bytes(bq, kc, kl, cbuf)
+        if smem <= _SMEM_LIMIT:
+            break
+        if bq == 1:
+            raise ValueError(f"K2 needs {smem} bytes of shared memory for "
+                             f"K={kl}, cbuf={cbuf}, more than {_SMEM_LIMIT}")
+        bq //= 2
+    per_sm = topk_ctas_per_sm(bq, packed, kc, kl, cbuf)
+    if per_sm == 0:
+        raise ValueError(f"K2 at bq={bq}, K={kl}, cbuf={cbuf} fits no CTA "
+                         "on an SM")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    parts = max(1, sms * per_sm // -(-q // bq))
+    rows = max(-(-n // parts), 8 * cbuf, -(-n // _MAX_GRID_Y))
+    return bq, -(-rows // THREADS) * THREADS
 
 
 def _validate_packed(kc: int, k: int, l: int, lut: torch.Tensor,
@@ -185,8 +215,8 @@ def lut16_adc_topk(codes: torch.Tensor, lut: torch.Tensor, k: int, *,
                          f"{codes.device}, got {tuple(base.shape)} on "
                          f"{base.device}")
     cbuf = candidate_buffer_width(k)
-    bq, rows = _resolve_lut16_blocks(q, n, kc, lut16.shape[1], codes.device,
-                                     cbuf=cbuf)
+    bq, rows = _resolve_topk_blocks(q, n, kc, lut16.shape[1], packed, cbuf,
+                                    codes.device)
     s, ids = lut16_adc_topk_cuda(codes, lut16, base.contiguous(), cbuf=cbuf,
                                  packed=packed, bq=bq, rows_per_cta=rows)
     LAUNCHES["lut16_adc_topk"] += 1

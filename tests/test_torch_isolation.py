@@ -1,6 +1,7 @@
-"""The port stands alone: no file of src/repro_torch, and not chip_smoke.py,
-imports jax or the JAX package ``repro``, and the package imports in a
-process where jax cannot be imported at all."""
+"""The port stands alone: no file of src/repro_torch, and neither
+chip_smoke.py nor tools/lut16_probe.py, imports jax or the JAX package
+``repro``, and the package imports in a process where jax cannot be
+imported at all."""
 
 import ast
 import os
@@ -12,7 +13,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py", REPO / "tools" / "lut16_probe.py"]
 
 
 def _imported_roots(path: Path) -> set[str]:
