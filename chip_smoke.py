@@ -46,6 +46,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
+# The 67e12 counts an FMA as two operations; an f32 add takes one FMA lane
+# a clock, so adds alone run at half of it (132 SMs x 128 lanes x 1.98 GHz).
+F32_ADDS_PER_S = F32_OPS_PER_S / 2
 TF32_OPS_PER_S = 495e12         # H100 SXM dense TF32 on the tensor cores
 RTOL, ATOL = 1e-5, 1e-4         # the JAX package's kernel-vs-oracle tolerance
 
@@ -305,7 +308,7 @@ def edge_cases_lut16(torch, ops, ref):
         want = ref.lut16_adc_plain(
             stored, ops._validate_packed(stored.shape[1], k_sub, 16, lut,
                                          packed), packed=packed)
-        assert_close(got, want, f"K1 at {(n, k_sub, q, packed)}")
+        check(torch.equal(got, want), f"K1 != plain at {(n, k_sub, q, packed)}")
         # planted ties across CTA boundaries and inside one chunk
         tie_rows = torch.tensor([3, 5, n // 3, n // 2, n - 1], device="cuda")
         codes[tie_rows] = codes[3].clone()
@@ -345,6 +348,83 @@ def edge_cases_lut16(torch, ops, ref):
                           "planted ties not in lowest-id order")
                 cases += 1
     return cases
+
+
+def edge_cases_k1(torch, ops, ref) -> dict:
+    """K1 against its plain version, bit for bit, at what its design
+    introduces: Q off the query block and group (1, 3, 5, 9, 17, 20, 33);
+    kc % 4 != 0, whose codes are staged back to back and funnel-shifted (K
+    = 7 and 50 unpacked, odd packed K = 99 -> kc = 50, packed K = 13 -> kc
+    = 7), beside kc % 4 == 0 with an even word count (K = 32); N not a
+    multiple of the chunk and N below one chunk; row ranges that end
+    mid-chunk, with several chunks a range (explicit plans); the delta
+    engine's N = 8192 at Q = 128, packed and not; codes at a 16-byte offset
+    into their allocation (a view).  Each launch runs twice and must give
+    the same bits; a plan's CTAs per SM must be the occupancy calculator's,
+    its shared memory the C side's; codes off 16-byte alignment must be
+    refused."""
+    from repro_torch.kernels import lut16
+    g = torch.Generator(device="cuda").manual_seed(14)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = []
+    for n, k_sub, q, packed, explicit in (
+            (1000, 100, 1, False, None), (1000, 100, 3, False, None),
+            (3001, 100, 5, False, None), (2049, 99, 17, True, None),
+            (777, 13, 9, True, None), (500, 7, 33, False, None),
+            (300, 32, 3, False, None), (100, 100, 16, False, None),
+            (64, 99, 2, True, None), (8192, 100, 128, False, None),
+            (8192, 100, 128, True, None), (1000, 100, 20, False, (96, 288)),
+            (1000, 50, 20, False, (64, 192)), (999, 7, 3, False, (32, 96)),
+            (1000, 16, 8, False, "view")):
+        codes = torch.randint(0, 16, (n + 1, k_sub), generator=g,
+                              device="cuda", dtype=torch.uint8)
+        codes = codes[1:] if explicit == "view" else codes[:n]
+        lut = torch.randn((q, k_sub, 16), generator=g, device="cuda")
+        stored = (torch.from_numpy(ops.pack_codes(codes.cpu().numpy())).cuda()
+                  if packed else codes.contiguous() if explicit != "view"
+                  else codes)
+        kc = stored.shape[1]
+        lut_p = ops._validate_packed(kc, k_sub, 16, lut, packed).contiguous()
+        kl = lut_p.shape[1]
+        want = ref.lut16_adc_plain(stored, lut_p, packed=packed)
+        plan = lut16.plan_adc(q, n, kc, kl, sms, packed)
+        if isinstance(explicit, tuple):
+            threads, rows = explicit
+            plan = lut16.AdcPlan(
+                bq=plan.bq, threads=threads, rows_per_cta=rows,
+                smem_bytes=lut16.adc_smem_bytes(plan.bq, kc, kl, threads),
+                ctas_per_sm=0)
+
+            def run():
+                return lut16.lut16_adc_cuda(stored, lut_p, packed=packed,
+                                            plan=plan)
+        else:
+            check(plan.ctas_per_sm == lut16.adc_ctas_per_sm(
+                plan.bq, packed, kc, kl, plan.threads),
+                f"K1 plan at {(n, k_sub, q, packed)}: CTAs per SM differ "
+                "from the occupancy calculator's")
+
+            def run():
+                return ops.lut16_adc(stored, lut, packed=packed)
+        check(plan.smem_bytes == lut16.adc_smem_bytes_cuda(
+            plan.bq, kc, kl, plan.threads), "K1 shared memory: Python != C")
+        got = run()
+        shape = (n, k_sub, q, packed, explicit)
+        check(torch.equal(got, want), f"K1 != plain at {shape}")
+        check(torch.equal(got, run()), f"K1 at {shape}: two launches differ")
+        shapes.append({"n": n, "k": k_sub, "q": q, "packed": packed,
+                       "kc": kc, "bq": plan.bq, "threads": plan.threads,
+                       "rows_per_cta": plan.rows_per_cta,
+                       "ranges": plan.grid(q, n)[0]})
+    odd = torch.randint(0, 16, (101, 7), generator=g, device="cuda",
+                        dtype=torch.uint8)[1:]
+    try:
+        ops.lut16_adc(odd, torch.randn((2, 7, 16), device="cuda"))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("K1 took codes off 16-byte alignment")
+    return {"cases": len(shapes), "shapes": shapes}
 
 
 def edge_cases_k2_threshold(torch, ops, ref) -> dict:
@@ -539,7 +619,8 @@ def run_kernels(torch, idx, queries, launches, c1):
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import ref
     from repro_torch.kernels.block_sparse import _smem_bytes
-    from repro_torch.kernels.lut16 import topk_ctas_per_sm, topk_smem_bytes
+    from repro_torch.kernels.lut16 import (adc_ctas_per_sm, plan_adc,
+                                           topk_ctas_per_sm, topk_smem_bytes)
 
     arrays = idx.engine.arrays
     q_dims, q_vals, q_dense = queries
@@ -555,19 +636,62 @@ def run_kernels(torch, idx, queries, launches, c1):
     n_pad = (ptr.shape[0] - 1) * 128
     torch.cuda.synchronize()
 
-    # K1
-    got = ops.lut16_adc(codes, lut)
-    want = ref.lut16_adc_plain(codes, lut)
-    k1_err = assert_close(got, want, "K1 at the slice shapes")
-    emb_idx = (codes.long() + 16 * torch.arange(k_sub, device="cuda")).contiguous()
-    emb_w = lut.permute(1, 2, 0).reshape(k_sub * 16, nq).contiguous()
-    k1_lib = torch.nn.functional.embedding_bag(emb_idx, emb_w, mode="sum").T
-    assert_close(k1_lib, want, "embedding_bag yardstick")
-    k1 = dict(ms=cuda_ms(lambda: ops.lut16_adc(codes, lut)),
-              plain_ms=cuda_ms(lambda: ref.lut16_adc_plain(codes, lut)),
-              library_ms=cuda_ms(lambda: torch.nn.functional.embedding_bag(
-                  emb_idx, emb_w, mode="sum")),
-              max_abs_err=k1_err)
+    # K1, at the slice's Q = 128 and at Q = 1, 8 and the delta's N = 8192
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_mhz = smi_clock_mhz()
+    wavefronts_per_ms = sms * clock_mhz * 1e3
+
+    def k1_bound(qn, nn):
+        return max((nn * kc + 4 * qn * nn) / HBM_BYTES_PER_S,
+                   qn * nn * k_sub / F32_ADDS_PER_S) * 1e3
+
+    def lut_floors(qn, nn, bq):
+        """The scan's shared-memory floors at one wavefront per clock per
+        SM: ``smem_floor_ms``, 4 B per lookup at 128 B a wavefront (as in
+        earlier runs); ``layout_floor_ms``, the kept layout's wavefronts:
+        32 lookups each (an LDS.64 for 2 queries takes two, a half-warp
+        each), plus each query block's code words, one wavefront per warp
+        and word to stage them and one to read them."""
+        lookups = qn * nn * k_sub
+        words = -(-nn // 32) * -(-kc // 4) * 2 * -(-qn // bq)
+        return {"smem_floor_ms": lookups / 32 / wavefronts_per_ms,
+                "layout_floor_ms": (lookups / 32 + words) / wavefronts_per_ms}
+
+    def k1_reading(c, lq):
+        qn, nn = lq.shape[0], c.shape[0]
+        want = ref.lut16_adc_plain(c, lq)
+        got = ops.lut16_adc(c, lq)
+        check(torch.equal(got, want), f"K1 != plain at Q = {qn}, N = {nn}")
+        check(torch.equal(got, ops.lut16_adc(c, lq)),
+              f"K1 at Q = {qn}, N = {nn}: two launches differ")
+        e_idx = (c.long() + 16 * torch.arange(k_sub, device="cuda"))
+        e_w = lq.permute(1, 2, 0).reshape(k_sub * 16, qn).contiguous()
+        lib = torch.nn.functional.embedding_bag(e_idx, e_w, mode="sum").T
+        assert_close(lib, want, "embedding_bag yardstick")
+        plan = plan_adc(qn, nn, kc, k_sub, sms)
+        return {"ms": cuda_ms(lambda: ops.lut16_adc(c, lq)),
+                "plain_ms": cuda_ms(lambda: ref.lut16_adc_plain(c, lq)),
+                "library_ms": cuda_ms(lambda: torch.nn.functional
+                                      .embedding_bag(e_idx, e_w, mode="sum")),
+                "bound_ms": k1_bound(qn, nn), "max_abs_err": max_abs(got,
+                                                                      want),
+                "plan": {"bq": plan.bq, "threads": plan.threads,
+                         "rows_per_cta": plan.rows_per_cta,
+                         "grid": plan.grid(qn, nn),
+                         "smem_bytes": plan.smem_bytes,
+                         "ctas_per_sm": plan.ctas_per_sm,
+                         "ctas_per_sm_cuda": adc_ctas_per_sm(
+                             plan.bq, False, kc, k_sub, plan.threads),
+                         "warps_per_sm": plan.warps_per_sm},
+                **lut_floors(qn, nn, plan.bq)}
+
+    k1_by_q = {str(qn): k1_reading(codes, lut[:qn]) for qn in (1, 8, nq)}
+    k1_by_q["128_n8192"] = k1_reading(codes[:8192], lut)
+    k1 = {key: k1_by_q[str(nq)][key]
+          for key in ("ms", "plain_ms", "library_ms", "max_abs_err")}
+    k1_plan = k1_by_q[str(nq)]["plan"]
+    check(k1_plan["ctas_per_sm"] == k1_plan["ctas_per_sm_cuda"],
+          "K1's plan and the occupancy calculator disagree")
     k1_bytes = n * kc + 4 * nq * n
     k1_ops = nq * n * k_sub
 
@@ -602,12 +726,10 @@ def run_kernels(torch, idx, queries, launches, c1):
             "materialised_ms": cuda_ms(lambda: ops.lut16_adc_topk(
                 codes, lq, c1, bias=bq_, fused=False)),
             "bound_ms": max(k2_bytes(qn) / HBM_BYTES_PER_S,
-                            k2_ops(qn) / F32_OPS_PER_S) * 1e3}
+                            k2_ops(qn) / F32_ADDS_PER_S) * 1e3}
     cbuf = ops.candidate_buffer_width(c1)
     bq_k2, rows_k2 = ops._resolve_topk_blocks(nq, n, kc, k_sub, False, cbuf,
                                               codes.device)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    clock_mhz = smi_clock_mhz()
     k2_extra = {
         "materialised_ms": k2_by_q[str(nq)]["materialised_ms"],
         "by_q": k2_by_q,
@@ -617,13 +739,15 @@ def run_kernels(torch, idx, queries, launches, c1):
             "bq": bq_k2, "rows_per_cta": rows_k2,
             "ranges": -(-n // rows_k2),
             **ptxas_report(_build.build()["ptxas"]["lut16"],
-                           ("lut16_topk_partial_kernel", "topk_merge_kernel",
-                            "lut16_adc_kernel"))},
-        # the scan's shared-memory floor: one 4-byte LUT read per (query,
-        # row, subspace) at 128 B per clock per SM
-        "smem_floor_ms": nq * n * k_sub * 4 / (sms * 128 * clock_mhz * 1e6)
-        * 1e3,
-        "smem_floor_clock_mhz": clock_mhz}
+                           ("lut16_topk_partial_kernel",
+                            "topk_merge_kernel"))},
+        **lut_floors(nq, n, bq_k2), "smem_floor_clock_mhz": clock_mhz}
+    k1_extra = {
+        "by_q": k1_by_q,
+        "ptxas": {**k1_plan, **ptxas_report(_build.build()["ptxas"]["lut16"],
+                                            ("lut16_adc_kernel",))},
+        "smem_floor_ms": k1_by_q[str(nq)]["smem_floor_ms"],
+        "layout_floor_ms": k1_by_q[str(nq)]["layout_floor_ms"]}
 
     # K3, at the slice's Q = 128 and at the online callers' Q = 1 and 8
     got = ops.block_sparse_matmul_bcsr(q_head, tiles, ptr, col)
@@ -666,16 +790,18 @@ def run_kernels(torch, idx, queries, launches, c1):
               max_abs_err=assert_close(got, want, "K3 at the slice shapes"))
 
     edge_lut = edge_cases_lut16(torch, ops, ref)
+    edge_k1 = edge_cases_k1(torch, ops, ref)
     edge_k2 = edge_cases_k2_threshold(torch, ops, ref)
     edge_bs = edge_cases_block_sparse(torch, ops, ref)
 
     rows = [
         kernel_row("lut16_adc", "src/repro_torch/csrc/lut16.cu",
                    "src/repro/kernels/lut16.py:110", launches["lut16_adc"],
-                   k1, k1_bytes, k1_ops),
+                   k1, k1_bytes, k1_ops, F32_ADDS_PER_S),
         kernel_row("lut16_adc_topk", "src/repro_torch/csrc/lut16.cu",
                    "src/repro/kernels/lut16.py:216",
-                   launches["lut16_adc_topk"], k2, k2_bytes(nq), k2_ops(nq)),
+                   launches["lut16_adc_topk"], k2, k2_bytes(nq), k2_ops(nq),
+                   F32_ADDS_PER_S),
         kernel_row("block_sparse_matmul",
                    "src/repro_torch/csrc/block_sparse.cu",
                    "src/repro/kernels/block_sparse.py:83",
@@ -692,11 +818,13 @@ def run_kernels(torch, idx, queries, launches, c1):
                **ptxas_report(_build.build()["ptxas"]["block_sparse"],
                               ("block_sparse_kernel",))},
         by_q=k3_by_q)
+    rows[0].update(k1_extra)
     rows[1].update(k2_extra)
     emit("kernels_checked", slice_shapes={"Q": nq, "N": n, "Kc": kc, "K": k_sub,
                                           "k": c1, "tiles": t_real,
                                           "N_pad": n_pad},
-         edge_cases_lut16=edge_lut, edge_cases_k2_threshold=edge_k2,
+         edge_cases_lut16=edge_lut, edge_cases_k1=edge_k1,
+         edge_cases_k2_threshold=edge_k2,
          edge_cases_block_sparse=len(edge_bs),
          block_sparse_cases=edge_bs,
          tolerance={"rtol": RTOL, "atol": ATOL})

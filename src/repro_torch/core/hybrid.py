@@ -62,7 +62,13 @@ class HybridIndexParams:
     # search
     alpha: int = 20              # overfetch multiplier (pass 1)
     beta: int = 5                # keep multiplier (pass 2)
-    # engine backend: ref | onehot | cuda | cuda-packed (None => cuda)
+    # the JAX package's alias for backend="pallas" (its field, so that its
+    # params cross over as HybridIndexParams(**asdict(theirs))).  Here it
+    # changes nothing: backend=None serves on the kernels (cuda) either way,
+    # where the JAX package's None with False means its ref backend.
+    use_lut16_kernel: bool = False
+    # engine backend: ref | onehot | cuda | cuda-packed, or the JAX
+    # package's names (pallas, pallas-packed, onehot-mxu, ...); None => cuda
     backend: str | None = None
     # store PQ codes packed two-per-byte.  None => pack iff the backend is
     # cuda-packed; True also works with ref/onehot (they unpack first).

@@ -12,19 +12,24 @@
 // ordered by score descending and row ascending (lax.top_k's tie-break).
 //
 // What bounds them on the H100: every (query, row, subspace) triple is one
-// shared-memory LUT read and one f32 add, Q*N*K of them; the code stream is
+// shared-memory LUT lookup and one f32 add, Q*N*K of them; the code stream is
 // only N*Kc bytes and is read once per query block.  At the pass-1 shapes
-// (Q=128, K=100) the LUT reads, not HBM, are the limit.  The design keeps a
-// query block's whole LUT (bq x K x 16 f32) in shared memory, so each code
-// byte fetched from HBM feeds bq lookups, and lays each subspace's 16 entries
-// on 16 consecutive banks, so the 32 lookups of a warp never conflict.  K1
-// writes the (Q, N) matrix.  K2 never does; its selection must cost little
-// beside the scan and must not take the scan's occupancy:
+// (Q=128, K=100) the LUT reads, not HBM, are the limit: a warp's 32 rows
+// look up at most 32 entries per shared-memory wavefront.  Both kernels keep
+// a query block's whole LUT (bq x K x 16 f32) in shared memory, so each code
+// byte fetched from HBM feeds bq lookups, in a query-interleaved image that
+// one LDS.64 reads for 2 queries, with one address per (row, subspace) for
+// all bq queries, and unroll whole code words in the per-row sum.  K1
+// writes the (Q, N) matrix; it takes 16 queries per CTA, copies each chunk's
+// codes with cp.async into a second buffer while the first is scanned, and
+// its chunk (a row a thread) is as wide as the shared memory allows.  K2
+// never writes the matrix; its selection must cost little beside the scan
+// and must not take the scan's occupancy:
 //
 // - Shared memory: 4 queries per CTA, one sorted buffer of cbuf keys and one
 //   chunk (256 keys) of staging per query; at K = 100, cbuf = 512 that is
 //   75,840 B, and at most 80 registers, so three CTAs (24 warps) fit on an
-//   SM, as K1 has.  Only queries that staged anything merge, each by the
+//   SM.  Only queries that staged anything merge, each by the
 //   256 / bq threads that own it (a named barrier per query): the staged
 //   keys are ordered (a count of ranks when there are few, else a bitonic
 //   sort), then every key goes straight to its rank in the merged list
@@ -33,7 +38,7 @@
 // - Latency: each chunk's bias and the next chunk's code words (into
 //   registers) are loaded before the scan and the words stored after it, so
 //   no HBM round trip stands between two chunks; the copy of codes into
-//   shared memory (shared with K1) divides once per thread, not per word.
+//   shared memory divides once per thread, not per word.
 // - One u32 per query in device memory, the shared threshold: the ordered
 //   encoding of a score, raised only with atomicMax.  A CTA whose buffer
 //   holds cbuf real keys publishes the worst of them.  Those are cbuf
@@ -66,31 +71,311 @@
 
 namespace {
 
-constexpr int kThreads = 256;   // rows per chunk: each thread owns one row
+constexpr int kThreads = 256;   // K2's rows per chunk (a row a thread), merge threads
 constexpr int kLutWidth = 16;   // LUT entries per subspace (4-bit codes)
 constexpr unsigned long long kEmpty = ~0ull;   // sorts after every real key
 
 __host__ __device__ inline int code_words(int kc) { return (kc + 3) / 4; }
 
-// Shared-memory row stride of the staged codes, in 32-bit words.  Odd, so
-// that thread t reading word w of its own row hits bank (t*stride + w) % 32:
-// the 32 rows of a warp fall on 32 different banks.
+// Shared-memory row stride, in 32-bit words, of codes staged one row to a
+// word-aligned slot (K2's staging; K1's when kc % 4 == 0).  Odd, so that
+// thread t reading word w of its own row hits bank (t*stride + w) % 32: the
+// 32 rows of a warp fall on 32 different banks.
 __host__ __device__ inline int code_stride(int kc) { return code_words(kc) | 1; }
 
-// Copy the LUTs of queries [q0, q0 + BQ) into shared memory; queries past
-// the end read as zeros (their sums are computed and never stored).
+// ---------------------------------------------------------------------------
+// The scan shared by K1 and K2.
+//
+// The LUT image in shared memory is query-interleaved: subspace-major, then
+// the BQ / QV query groups, then the 16 codes, then the QV queries of a group.
+// A thread looking up code c of subspace k reads the QV = 2 queries' entries
+// of a group with one LDS.64, and the 16 entries a warp can ask for lie in
+// one 128-byte span, two on every bank pair, so it never conflicts.  The
+// card serves a warp's LDS.64 in two wavefronts (a half-warp each), so the
+// rate stays at 32 lookups per wavefront, as with one LDS.32 per lookup, but
+// with half the load instructions.  At QV = 4 (LDS.128, a quarter-warp per
+// wavefront) the 8 threads of a phase pick among 16 entries on 8 bank
+// groups and conflict: K1 ran 1.6x slower (tools/lut16_probe.py).
+// ---------------------------------------------------------------------------
+
+constexpr int kQueryVec = 2;   // queries per shared LUT load (LDS.64)
+
 template <int BQ>
+__host__ __device__ constexpr int query_vec() {
+  return BQ < kQueryVec ? BQ : kQueryVec;
+}
+
+// Float index of LUT entry (query qi, subspace k, code c) in the image.
+template <int BQ, int QV>
+__host__ __device__ inline int lut_image_index(int qi, int k, int c) {
+  return ((k * (BQ / QV) + qi / QV) * kLutWidth + c) * QV + qi % QV;
+}
+
+// Copy the LUTs of queries [q0, q0 + BQ) into the image; queries past the
+// end read as zeros (their sums are computed and never stored).  The reads
+// follow the LUT's own (query, k, code) order, so they coalesce.
+template <int BQ, int QV>
 __device__ void load_lut(const float* __restrict__ lut, int q, int kl, int q0,
                          float* lut_s) {
   const int per_q = kl * kLutWidth;
   for (int i = threadIdx.x; i < BQ * per_q; i += blockDim.x) {
     const int qi = i / per_q;
-    lut_s[i] = (q0 + qi < q) ? lut[(size_t)q0 * per_q + i] : 0.f;
+    const int kcode = i - qi * per_q;   // k * 16 + code
+    lut_s[lut_image_index<BQ, QV>(qi, kcode / kLutWidth, kcode % kLutWidth)] =
+        (q0 + qi < q) ? lut[(size_t)q0 * per_q + i] : 0.f;
   }
 }
 
-// Stage the code bytes of rows [row0, row0 + rows) into shared memory, one
-// row per `code_stride(kc)` words.  The rows are contiguous in HBM, so the
+template <int QV>
+__device__ __forceinline__ void add_vec(float* acc, const float* p) {
+  if constexpr (QV == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    acc[0] += v.x; acc[1] += v.y; acc[2] += v.z; acc[3] += v.w;
+  } else if constexpr (QV == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    acc[0] += v.x; acc[1] += v.y;
+  } else {
+    acc[0] += *p;
+  }
+}
+
+// acc[qi] += lut[qi, k, code & 15] for the BQ queries; lut_k is subspace
+// k's part of the image.  One address for all BQ queries; the query groups
+// are immediate offsets from it.
+template <int BQ, int QV>
+__device__ __forceinline__ void add_code(float (&acc)[BQ], const float* lut_k,
+                                         uint32_t code) {
+  const float* p = lut_k + (code & (kLutWidth - 1)) * QV;
+#pragma unroll
+  for (int g = 0; g < BQ / QV; ++g)
+    add_vec<QV>(&acc[g * QV], p + g * kLutWidth * QV);
+}
+
+// The subspaces of code byte `byte` (bits above the byte are ignored): one,
+// or two when packed (low nibble first).
+template <int BQ, int QV, bool PACKED>
+__device__ __forceinline__ void add_byte(float (&acc)[BQ], const float* lut_b,
+                                         uint32_t byte) {
+  add_code<BQ, QV>(acc, lut_b, byte);
+  if (PACKED) add_code<BQ, QV>(acc, lut_b + kLutWidth * BQ, byte >> 4);
+}
+
+// The code words of one staged row, in order, when the row starts on a word.
+struct AlignedWords {
+  const uint32_t* p;
+  __device__ __forceinline__ uint32_t next() { return *p++; }
+};
+
+// The code words of a row that starts at any byte (K1's bytes staged back to
+// back, kc % 4 != 0): each is funnel-shifted out of two aligned words, so a
+// row costs one shared load more than it has words, and the last may read
+// the word after the row (the staging buffer is padded for it).
+struct ShiftedWords {
+  const uint32_t* p;
+  uint32_t lo;
+  uint32_t shift;
+  __device__ __forceinline__ ShiftedWords(const unsigned char* base, int byte0)
+      : p(reinterpret_cast<const uint32_t*>(base) + (byte0 >> 2) + 1),
+        lo(p[-1]), shift(8u * (byte0 & 3)) {}
+  __device__ __forceinline__ uint32_t next() {
+    const uint32_t hi = *p++;
+    const uint32_t w = __funnelshift_r(lo, hi, shift);
+    lo = hi;
+    return w;
+  }
+};
+
+// The per-row sum shared by K1 and K2: acc[qi] = sum over subspaces k in
+// order 0..K-1 of lut[qi, k, code(row, k)], starting from +0 (packed: the
+// low nibble of byte j is subspace 2j).  Whole code words are unrolled with
+// no test per byte; only the last partial word (kc % 4 bytes) is bounded.
+template <int BQ, int QV, bool PACKED, class Words>
+__device__ __forceinline__ void score_row(Words words, int kc,
+                                          const float* lut_s,
+                                          float (&acc)[BQ]) {
+  constexpr int kByte = (PACKED ? 2 : 1) * kLutWidth * BQ;   // floats a byte
+#pragma unroll
+  for (int qi = 0; qi < BQ; ++qi) acc[qi] = 0.f;
+  const float* lut_w = lut_s;
+  const int whole = kc >> 2;
+  for (int w = 0; w < whole; ++w, lut_w += 4 * kByte) {
+    const uint32_t word = words.next();
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      add_byte<BQ, QV, PACKED>(acc, lut_w + j * kByte, word >> (8 * j));
+  }
+  const int tail = kc & 3;
+  if (tail) {
+    const uint32_t word = words.next();
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      if (j < tail)
+        add_byte<BQ, QV, PACKED>(acc, lut_w + j * kByte, word >> (8 * j));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K1: materialised scan.  Grid (row ranges, query blocks); each CTA loads its
+// query block's LUT image once and walks its row range in chunks of
+// blockDim.x rows, one row a thread.  Chunk i + 1's codes are copied with
+// cp.async into the other of two buffers while chunk i is scanned, so a
+// chunk never waits for HBM, and one barrier per chunk suffices.  The
+// planner (kernels/lut16.py:plan_adc) sizes blockDim.x for the most
+// resident warps the shared memory allows (20 at K = 100, bq = 16).
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxAdcThreads = 1024;
+
+__host__ __device__ inline size_t adc_lut_bytes(int bq, int kl) {
+  return (size_t)bq * kl * kLutWidth * sizeof(float);
+}
+
+// One chunk's staging buffer: kc % 4 == 0, rows in slots of code_stride(kc)
+// words; else the chunk's bytes back to back, rounded up to 16 bytes, plus
+// the 16 bytes a row's last funnel shift may read.
+__host__ __device__ inline size_t adc_stage_bytes(int kc, int threads) {
+  if ((kc & 3) == 0)
+    return (size_t)threads * code_stride(kc) * sizeof(uint32_t);
+  return ((size_t)threads * kc + 15) / 16 * 16 + 16;
+}
+
+__host__ __device__ inline size_t adc_smem(int bq, int kc, int kl,
+                                           int threads) {
+  return adc_lut_bytes(bq, kl) + 2 * adc_stage_bytes(kc, threads);
+}
+
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+               : : "r"(shared_addr(dst)), "l"(__cvta_generic_to_global(src))
+               : "memory");
+}
+
+// 16 bytes, of which the first src_bytes are read and the rest zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               : : "r"(shared_addr(dst)), "l"(__cvta_generic_to_global(src)),
+                 "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" : : : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" : : : "memory");
+}
+
+// Start the copy of rows [row0, row0 + rows) into a staging buffer (see
+// adc_stage_bytes).  kc % 4 == 0: word by word, each thread stepping its
+// (row, word) by a fixed amount, so the copy divides once.  Else 16-byte
+// pieces: the chunk starts 16-byte aligned (row0 is a multiple of 32 rows
+// and the codes are 16-byte aligned), and the last piece is zero-filled
+// past the end of the codes.
+__device__ void stage_codes(const uint8_t* __restrict__ codes, int kc,
+                            long long row0, int rows, unsigned char* dst) {
+  if ((kc & 3) == 0) {
+    const int wpr = kc >> 2;
+    const int stride = code_stride(kc);
+    const uint32_t* src = reinterpret_cast<const uint32_t*>(codes + row0 * kc);
+    uint32_t* d = reinterpret_cast<uint32_t*>(dst);
+    const int total = rows * wpr;
+    const int dr = blockDim.x / wpr, dw = blockDim.x - dr * wpr;
+    int r = threadIdx.x / wpr, w = threadIdx.x - r * wpr;
+    for (int i = threadIdx.x; i < total; i += blockDim.x) {
+      cp_async4(d + r * stride + w, src + i);
+      r += dr;
+      w += dw;
+      if (w >= wpr) { w -= wpr; ++r; }
+    }
+    return;
+  }
+  const uint8_t* src = codes + row0 * kc;
+  const int nbytes = rows * kc;
+  for (int i = 16 * threadIdx.x; i < nbytes; i += 16 * blockDim.x)
+    cp_async16(dst + i, src + i, min(16, nbytes - i));
+}
+
+template <int BQ, int QV, bool PACKED, bool ALIGNED>
+__device__ __forceinline__ void adc_scan(const uint8_t* __restrict__ codes,
+                                         float* __restrict__ out, long long n,
+                                         int kc, int q, int q0,
+                                         long long start, long long end,
+                                         const float* lut_s,
+                                         unsigned char* stage0) {
+  const int chunk = blockDim.x;
+  const size_t stage_bytes = adc_stage_bytes(kc, chunk);
+  const int stride = code_stride(kc);
+  int buf = 0;
+  for (long long row0 = start; row0 < end; row0 += chunk, buf ^= 1) {
+    // this chunk's codes (and, the first time, the LUT image) are visible
+    // to all threads, and every thread is done with the other buffer
+    cp_async_wait_all();
+    __syncthreads();
+    const long long next = row0 + chunk;
+    if (next < end)
+      stage_codes(codes, kc, next, (int)min((long long)chunk, end - next),
+                  stage0 + (buf ^ 1) * stage_bytes);
+    cp_async_commit();
+    const int rows = (int)min((long long)chunk, end - row0);
+    if ((int)threadIdx.x >= rows) continue;
+    const unsigned char* cur = stage0 + buf * stage_bytes;
+    float acc[BQ];
+    if constexpr (ALIGNED)
+      score_row<BQ, QV, PACKED>(
+          AlignedWords{reinterpret_cast<const uint32_t*>(cur) +
+                       threadIdx.x * stride}, kc, lut_s, acc);
+    else
+      score_row<BQ, QV, PACKED>(ShiftedWords(cur, threadIdx.x * kc), kc,
+                                lut_s, acc);
+    const long long row = row0 + threadIdx.x;
+#pragma unroll
+    for (int qi = 0; qi < BQ; ++qi)
+      if (q0 + qi < q) out[(size_t)(q0 + qi) * n + row] = acc[qi];
+  }
+}
+
+template <int BQ, bool PACKED, int QV = query_vec<BQ>()>
+__global__ void __launch_bounds__(kMaxAdcThreads, 1)
+lut16_adc_kernel(const uint8_t* __restrict__ codes,
+                 const float* __restrict__ lut, float* __restrict__ out,
+                 long long n, int kc, int q, int kl, int rows_per_cta) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* lut_s = reinterpret_cast<float*>(smem);
+  unsigned char* stage0 = smem + adc_lut_bytes(BQ, kl);
+  const int q0 = blockIdx.y * BQ;
+  const long long start = (long long)blockIdx.x * rows_per_cta;
+  const long long end = min(n, start + rows_per_cta);
+  // the first chunk's copy runs while the LUT image is built
+  if (start < end)
+    stage_codes(codes, kc, start, (int)min((long long)blockDim.x, end - start),
+                stage0);
+  cp_async_commit();
+  load_lut<BQ, QV>(lut, q, kl, q0, lut_s);
+  if ((kc & 3) == 0)
+    adc_scan<BQ, QV, PACKED, true>(codes, out, n, kc, q, q0, start, end,
+                                   lut_s, stage0);
+  else
+    adc_scan<BQ, QV, PACKED, false>(codes, out, n, kc, q, q0, start, end,
+                                    lut_s, stage0);
+}
+
+// ---------------------------------------------------------------------------
+// K2: fused scan-and-select.
+//
+// A key packs (score, row) into 64 bits so that ascending key order is score
+// descending, then row ascending.  Keys are unique (a row is scanned once per
+// query), so a key's place in a merged list is its rank.  Empty slots hold
+// kEmpty, which no real key equals (its score would be a NaN).
+// ---------------------------------------------------------------------------
+
+// K2's copy: stage the code bytes of rows [row0, row0 + rows) into shared
+// memory, one row per `code_stride(kc)` words.  The rows are contiguous in HBM, so the
 // copy reads 32-bit words with neighbouring threads on neighbouring words;
 // `codes` must be 4-byte aligned and row0 * kc a multiple of 4.  Each
 // thread steps its (row, column) by a fixed amount per word, so the copy
@@ -139,84 +424,6 @@ __device__ void load_codes(const uint8_t* __restrict__ codes, int kc,
     dst[ri * stride_bytes + (i - ri * kc)] = src[i];
   }
 }
-
-template <int BQ>
-__device__ __forceinline__ void add_lut(float (&acc)[BQ], const float* lut_s,
-                                        int kl, int k, uint32_t code) {
-  const float* p = lut_s + k * kLutWidth + (code & (kLutWidth - 1));
-#pragma unroll
-  for (int qi = 0; qi < BQ; ++qi) acc[qi] += p[qi * kl * kLutWidth];
-}
-
-// The per-row sum shared by K1 and K2: acc[qi] = sum over subspaces k in
-// order 0..kl-1 of lut[qi, k, code(row, k)], starting from +0.
-template <int BQ, bool PACKED>
-__device__ __forceinline__ void score_row(const uint32_t* row_words, int kc,
-                                          const float* lut_s, int kl,
-                                          float (&acc)[BQ]) {
-#pragma unroll
-  for (int qi = 0; qi < BQ; ++qi) acc[qi] = 0.f;
-  const int nw = code_words(kc);
-  for (int w = 0; w < nw; ++w) {
-    const uint32_t word = row_words[w];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int byte_idx = 4 * w + j;
-      if (byte_idx < kc) {
-        const uint32_t byte = (word >> (8 * j)) & 0xFFu;
-        if (PACKED) {
-          add_lut<BQ>(acc, lut_s, kl, 2 * byte_idx, byte & 0x0Fu);
-          add_lut<BQ>(acc, lut_s, kl, 2 * byte_idx + 1, byte >> 4);
-        } else {
-          add_lut<BQ>(acc, lut_s, kl, byte_idx, byte);
-        }
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K1: materialised scan.  Grid (row ranges, query blocks); each CTA walks its
-// row range in chunks of kThreads rows.
-// ---------------------------------------------------------------------------
-
-template <int BQ, bool PACKED>
-__global__ void __launch_bounds__(kThreads)
-lut16_adc_kernel(const uint8_t* __restrict__ codes,
-                 const float* __restrict__ lut, float* __restrict__ out,
-                 long long n, int kc, int q, int kl, int rows_per_cta) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* lut_s = reinterpret_cast<float*>(smem);
-  uint32_t* codes_s = reinterpret_cast<uint32_t*>(lut_s + BQ * kl * kLutWidth);
-  const int q0 = blockIdx.y * BQ;
-  const int stride = code_stride(kc);
-  load_lut<BQ>(lut, q, kl, q0, lut_s);
-  const long long start = (long long)blockIdx.x * rows_per_cta;
-  const long long end = min(n, start + rows_per_cta);
-  for (long long row0 = start; row0 < end; row0 += kThreads) {
-    const int rows = (int)min((long long)kThreads, end - row0);
-    __syncthreads();
-    load_codes(codes, kc, row0, rows, codes_s);
-    __syncthreads();
-    if ((int)threadIdx.x < rows) {
-      float acc[BQ];
-      score_row<BQ, PACKED>(codes_s + threadIdx.x * stride, kc, lut_s, kl, acc);
-      const long long row = row0 + threadIdx.x;
-#pragma unroll
-      for (int qi = 0; qi < BQ; ++qi)
-        if (q0 + qi < q) out[(size_t)(q0 + qi) * n + row] = acc[qi];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K2: fused scan-and-select.
-//
-// A key packs (score, row) into 64 bits so that ascending key order is score
-// descending, then row ascending.  Keys are unique (a row is scanned once per
-// query), so a key's place in a merged list is its rank.  Empty slots hold
-// kEmpty, which no real key equals (its score would be a NaN).
-// ---------------------------------------------------------------------------
 
 constexpr int kMergeGroup = 16;   // partial lists one merge CTA reduces
 
@@ -355,7 +562,7 @@ __device__ void group_merge(unsigned long long* buf, int len,
 // this chunk's bias is read before the scan, so neither load's latency
 // stands between two chunks; the words go to shared memory once the scan
 // is done, before the merges.  At most 80 registers (three CTAs per SM).
-template <int BQ, bool PACKED>
+template <int BQ, bool PACKED, int QV = query_vec<BQ>()>
 __global__ void __launch_bounds__(kThreads, 3)
 lut16_topk_partial_kernel(const uint8_t* __restrict__ codes,
                           const float* __restrict__ lut,
@@ -385,7 +592,7 @@ lut16_topk_partial_kernel(const uint8_t* __restrict__ codes,
   // whole code words per row and few enough to prefetch: the fast path
   const int wpr = kc >> 2;
   const bool prefetch = (kc & 3) == 0 && wpr <= kPrefetch;
-  load_lut<BQ>(lut, q, kl, q0, lut_s);
+  load_lut<BQ, QV>(lut, q, kl, q0, lut_s);
   if (threadIdx.x < BQ) {
     len[threadIdx.x] = 0;
     count[threadIdx.x] = 0;
@@ -430,7 +637,8 @@ lut16_topk_partial_kernel(const uint8_t* __restrict__ codes,
     }
     float acc[BQ];
     if (mine)
-      score_row<BQ, PACKED>(codes_s + threadIdx.x * stride, kc, lut_s, kl, acc);
+      score_row<BQ, QV, PACKED>(AlignedWords{codes_s + threadIdx.x * stride},
+                                kc, lut_s, acc);
 #pragma unroll
     for (int qi = 0; qi < BQ; ++qi) {
       float s = 0.f;
@@ -572,45 +780,62 @@ topk_merge_kernel(const unsigned long long* __restrict__ in, int p_in,
 // Host side
 // ---------------------------------------------------------------------------
 
-size_t adc_smem(int bq, int kc, int kl) {
-  return (size_t)bq * kl * kLutWidth * sizeof(float) +
-         (size_t)kThreads * code_stride(kc) * sizeof(uint32_t);
-}
-
 size_t topk_smem(int bq, int kc, int kl, int cbuf) {
   return (size_t)bq * (cbuf + kThreads) * sizeof(unsigned long long) +
-         adc_smem(bq, kc, kl) + (size_t)bq * 4 * sizeof(uint32_t);
+         adc_lut_bytes(bq, kl) +
+         (size_t)kThreads * code_stride(kc) * sizeof(uint32_t) +
+         (size_t)bq * 4 * sizeof(uint32_t);
 }
 
-template <int BQ, bool PACKED>
+// K1 at `threads` rows per chunk (a multiple of 32, at most 1024) and
+// rows_per_cta a multiple of it; anything else is refused.
+template <int BQ, bool PACKED, int QV = query_vec<BQ>()>
 int launch_adc(const uint8_t* codes, const float* lut, float* out, long long n,
-               int kc, int q, int kl, int rows_per_cta, cudaStream_t stream) {
-  const size_t smem = adc_smem(BQ, kc, kl);
-  cudaError_t e = cudaFuncSetAttribute(lut16_adc_kernel<BQ, PACKED>,
+               int kc, int q, int kl, int threads, int rows_per_cta,
+               cudaStream_t stream) {
+  if (threads <= 0 || threads % 32 || threads > kMaxAdcThreads ||
+      rows_per_cta <= 0 || rows_per_cta % threads)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = adc_smem(BQ, kc, kl, threads);
+  cudaError_t e = cudaFuncSetAttribute(lut16_adc_kernel<BQ, PACKED, QV>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((unsigned)((n + rows_per_cta - 1) / rows_per_cta),
                   (unsigned)((q + BQ - 1) / BQ));
-  lut16_adc_kernel<BQ, PACKED><<<grid, kThreads, smem, stream>>>(
+  lut16_adc_kernel<BQ, PACKED, QV><<<grid, threads, smem, stream>>>(
       codes, lut, out, n, kc, q, kl, rows_per_cta);
   return (int)cudaGetLastError();
 }
 
+// CTAs of K1 one SM holds at once, or a negative cudaError_t.
 template <int BQ, bool PACKED>
+int adc_ctas_per_sm(int kc, int kl, int threads) {
+  const size_t smem = adc_smem(BQ, kc, kl, threads);
+  cudaError_t e = cudaFuncSetAttribute(lut16_adc_kernel<BQ, PACKED>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return -(int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, lut16_adc_kernel<BQ, PACKED>, threads, smem);
+  return (e != cudaSuccess) ? -(int)e : blocks;
+}
+
+template <int BQ, bool PACKED, int QV = query_vec<BQ>()>
 int launch_topk(const uint8_t* codes, const float* lut, const float* base,
                 long long base_qstride, uint32_t* thresholds,
                 unsigned long long* scratch_a, unsigned long long* scratch_b,
                 float* out_s, int* out_i, long long n, int kc, int q, int kl,
                 int rows_per_cta, int cbuf, cudaStream_t stream) {
   const size_t smem = topk_smem(BQ, kc, kl, cbuf);
-  cudaError_t e = cudaFuncSetAttribute(lut16_topk_partial_kernel<BQ, PACKED>,
+  cudaError_t e = cudaFuncSetAttribute(lut16_topk_partial_kernel<BQ, PACKED, QV>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
   int p = (int)((n + rows_per_cta - 1) / rows_per_cta);
   const dim3 grid((unsigned)((q + BQ - 1) / BQ), (unsigned)p);
-  lut16_topk_partial_kernel<BQ, PACKED><<<grid, kThreads, smem, stream>>>(
+  lut16_topk_partial_kernel<BQ, PACKED, QV><<<grid, kThreads, smem, stream>>>(
       codes, lut, base, base_qstride, scratch_a, thresholds, n, kc, q, kl,
       rows_per_cta, cbuf);
   e = cudaGetLastError();
@@ -650,6 +875,8 @@ int topk_ctas_per_sm(int kc, int kl, int cbuf) {
 
 }  // namespace
 
+// K1 serves up to 16 queries per CTA, 8 on packed codes (MAX_ADC_BQ in
+// kernels/lut16.py).
 #define DISPATCH_BQ(FN, ...)                                              \
   switch (bq * 2 + (packed ? 1 : 0)) {                                    \
     case 2: return FN<1, false>(__VA_ARGS__);                             \
@@ -660,6 +887,7 @@ int topk_ctas_per_sm(int kc, int kl, int cbuf) {
     case 9: return FN<4, true>(__VA_ARGS__);                              \
     case 16: return FN<8, false>(__VA_ARGS__);                            \
     case 17: return FN<8, true>(__VA_ARGS__);                             \
+    case 32: return FN<16, false>(__VA_ARGS__);                           \
     default: return (int)cudaErrorInvalidValue;                          \
   }
 
@@ -677,15 +905,16 @@ int topk_ctas_per_sm(int kc, int kl, int cbuf) {
 
 extern "C" {
 
-// K1.  codes (n, kc) u8; lut (q, kl, 16) f32 with kl == kc, or kl == 2*kc
-// when packed; out (q, n) f32.  Returns the launch's cudaError_t.
+// K1.  codes (n, kc) u8, 16-byte aligned; lut (q, kl, 16) f32 with
+// kl == kc, or kl == 2*kc when packed; out (q, n) f32.  Returns the launch's
+// cudaError_t.
 int lut16_adc_launch(const void* codes, const void* lut, void* out,
                      long long n, int kc, int q, int kl, int packed, int bq,
-                     int rows_per_cta, void* stream) {
+                     int threads, int rows_per_cta, void* stream) {
   if (n == 0 || q == 0) return 0;
   DISPATCH_BQ(launch_adc, static_cast<const uint8_t*>(codes),
               static_cast<const float*>(lut), static_cast<float*>(out), n, kc,
-              q, kl, rows_per_cta, static_cast<cudaStream_t>(stream))
+              q, kl, threads, rows_per_cta, static_cast<cudaStream_t>(stream))
 }
 
 // K2.  base (q, n) f32 with base_qstride == n, or (1, n) with 0.
@@ -710,8 +939,13 @@ int lut16_topk_launch(const void* codes, const void* lut, const void* base,
                    static_cast<cudaStream_t>(stream))
 }
 
-long long lut16_adc_smem_bytes(int bq, int kc, int kl) {
-  return (long long)adc_smem(bq, kc, kl);
+long long lut16_adc_smem_bytes(int bq, int kc, int kl, int threads) {
+  return (long long)adc_smem(bq, kc, kl, threads);
+}
+
+// CTAs of K1 per SM, or a negative cudaError_t.
+int lut16_adc_ctas_per_sm(int bq, int packed, int kc, int kl, int threads) {
+  DISPATCH_BQ(adc_ctas_per_sm, kc, kl, threads)
 }
 
 long long lut16_topk_smem_bytes(int bq, int kc, int kl, int cbuf) {

@@ -13,11 +13,18 @@ The launchers here take tensors that ``kernels/ops.py`` has already checked
 and shaped: LUT (Q, kl, 16) f32 contiguous, codes (N, Kc) uint8 contiguous.
 They allocate outputs and scratch with ``torch.empty`` and launch on the
 current stream.
+
+K1's launch plan (``plan_adc``) and the query-interleaved LUT image that
+both kernels build in shared memory (``lut_image_index``) are pure Python
+here, mirrors of ``csrc/lut16.cu``, so the CPU tests reach them; on the card
+``chip_smoke.py`` holds them against the C side's own sizes and the CUDA
+occupancy calculator.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import numpy as np
@@ -26,20 +33,35 @@ import torch
 from . import _build
 
 __all__ = ["candidate_buffer_width", "pack_codes", "unpack_codes",
-           "lut16_adc_cuda", "lut16_adc_topk_cuda", "THREADS"]
+           "lut16_adc_cuda", "lut16_adc_topk_cuda", "THREADS", "AdcPlan",
+           "plan_adc", "wave_rows", "adc_smem_bytes", "lut_image_index",
+           "query_vec"]
 
-THREADS = 256       # rows per chunk in csrc/lut16.cu (kThreads)
+THREADS = 256       # K2's rows per chunk in csrc/lut16.cu (kThreads)
 LUT_WIDTH = 16      # LUT entries per subspace the kernels read
 MERGE_GROUP = 16    # partial lists one merge CTA reduces (kMergeGroup)
+QUERY_VEC = 2       # queries per shared LUT load (kQueryVec)
+MAX_ADC_BQ = 16     # K1's largest query block (8 on packed codes)
+MAX_ADC_THREADS = 1024    # K1's largest chunk (kMaxAdcThreads)
+# Hopper's shared memory: 227 KB a CTA may opt into, 228 KB an SM holds, of
+# which 1 KB per resident CTA is the system's.
+SMEM_PER_CTA = 232448
+SMEM_PER_SM = 233472
+SMEM_RESERVED_PER_CTA = 1024
+# K1 is compiled with __launch_bounds__(1024, 1): at most 64 registers a
+# thread, so the 65536 registers of an SM hold 32 of its warps.
+ADC_WARPS_PER_SM = 65536 // (64 * 32)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
-    "lut16_adc_launch": ([_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _P], _I),
+    "lut16_adc_launch": ([_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _P],
+                         _I),
     "lut16_topk_launch": ([_P, _P, _P, _LL, _P, _P, _P, _P, _P, _LL, _I, _I,
                            _I, _I, _I, _I, _I, _P], _I),
-    "lut16_adc_smem_bytes": ([_I, _I, _I], _LL),
+    "lut16_adc_smem_bytes": ([_I, _I, _I, _I], _LL),
+    "lut16_adc_ctas_per_sm": ([_I, _I, _I, _I, _I], _I),
     "lut16_topk_smem_bytes": ([_I, _I, _I, _I], _LL),
     "lut16_topk_ctas_per_sm": ([_I, _I, _I, _I, _I], _I),
     "lut16_error_string": ([_I], ctypes.c_char_p),
@@ -91,6 +113,116 @@ def unpack_codes(packed: torch.Tensor, k: int) -> torch.Tensor:
     return out[:, :k].to(torch.uint8).contiguous()
 
 
+def query_vec(bq: int) -> int:
+    """Queries per shared LUT load in a query block of ``bq``."""
+    return min(bq, QUERY_VEC)
+
+
+def lut_image_index(bq: int, kl: int, qv: int | None = None) -> np.ndarray:
+    """(bq, kl, 16) int array: where LUT entry (query, subspace, code) of a
+    query block sits in the kernels' shared-memory image (float index).
+
+    Subspace-major, then the bq / qv query groups, then the 16 codes, then
+    the qv queries of a group (``lut_image_index`` in csrc/lut16.cu), so one
+    vector load returns qv queries' entries of one (subspace, code)."""
+    qv = query_vec(bq) if qv is None else qv
+    if bq % qv:
+        raise ValueError(f"a query block of {bq} has no groups of {qv}")
+    qi = np.arange(bq)[:, None, None]
+    k = np.arange(kl)[None, :, None]
+    c = np.arange(LUT_WIDTH)[None, None, :]
+    return ((k * (bq // qv) + qi // qv) * LUT_WIDTH + c) * qv + qi % qv
+
+
+def code_stride(kc: int) -> int:
+    """Words of one row's slot when codes are staged word-aligned (odd)."""
+    return -(-kc // 4) | 1
+
+
+def adc_stage_bytes(kc: int, threads: int) -> int:
+    """One of K1's two code buffers: word-aligned slots when kc % 4 == 0,
+    else the chunk's bytes back to back, rounded up to 16, plus 16 bytes
+    that a row's last funnel shift may read."""
+    if kc % 4 == 0:
+        return threads * code_stride(kc) * 4
+    return -(-threads * kc // 16) * 16 + 16
+
+
+def adc_smem_bytes(bq: int, kc: int, kl: int, threads: int) -> int:
+    """K1's dynamic shared memory: the LUT image and two code buffers."""
+    return bq * kl * LUT_WIDTH * 4 + 2 * adc_stage_bytes(kc, threads)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdcPlan:
+    """K1's launch: ``bq`` queries per CTA, ``threads`` rows per chunk (a
+    row a thread), ``rows_per_cta`` rows per CTA (whole chunks), and what
+    the plan expects of an SM."""
+    bq: int
+    threads: int
+    rows_per_cta: int
+    smem_bytes: int
+    ctas_per_sm: int
+
+    @property
+    def warps_per_sm(self) -> int:
+        return self.ctas_per_sm * self.threads // 32
+
+    def grid(self, q: int, n: int) -> tuple[int, int]:
+        """(row ranges, query blocks)."""
+        return -(-n // self.rows_per_cta), -(-q // self.bq)
+
+
+@functools.lru_cache(maxsize=256)
+def plan_adc(q: int, n: int, kc: int, kl: int, sms: int,
+             packed: bool = False) -> AdcPlan:
+    """K1's block resolution.
+
+    bq: the largest of 16, 8, 4, 2, 1 not above the next power of two of Q
+    whose LUT image and smallest chunk fit a CTA; at most 8 on packed codes
+    (16 would spill: a packed word's 8 subspaces are unrolled).  threads:
+    the chunk (a multiple of 32, at most 1024 and at most N rounded up to a
+    warp) that keeps the most warps resident on an SM, by shared memory and
+    by registers; among equals, the most CTAs.  rows_per_cta: whole chunks,
+    sized so that the grid is about one wave of CTAs.  No choice changes a
+    score: every (query, row) sum is taken in subspace order."""
+    bq = min(MAX_ADC_BQ // (2 if packed else 1),
+             1 << max(q - 1, 0).bit_length())
+    warps_cap = max(1, min(MAX_ADC_THREADS // 32, -(-n // 32)))
+    while True:
+        best = None
+        for warps in range(1, warps_cap + 1):
+            smem = adc_smem_bytes(bq, kc, kl, 32 * warps)
+            if smem > SMEM_PER_CTA:
+                break
+            ctas = min(SMEM_PER_SM // (smem + SMEM_RESERVED_PER_CTA),
+                       ADC_WARPS_PER_SM // warps)
+            key = (ctas * warps, ctas)
+            if ctas and (best is None or key > best[0]):
+                best = (key, warps, smem, ctas)
+        if best is not None:
+            break
+        if bq == 1:
+            raise ValueError(
+                f"K1 needs {adc_smem_bytes(1, kc, kl, 32)} bytes of shared "
+                f"memory for K={kl}, Kc={kc}, more than {SMEM_PER_CTA}")
+        bq //= 2
+    _, warps, smem, ctas = best
+    threads = 32 * warps
+    return AdcPlan(bq=bq, threads=threads,
+                   rows_per_cta=wave_rows(q, n, bq, threads, ctas, sms),
+                   smem_bytes=smem, ctas_per_sm=ctas)
+
+
+def wave_rows(q: int, n: int, bq: int, threads: int, ctas_per_sm: int,
+              sms: int) -> int:
+    """K1's rows per CTA, whole chunks of ``threads``, for about one wave
+    of CTAs on ``sms`` SMs holding ``ctas_per_sm`` each."""
+    ranges = max(1, sms * ctas_per_sm // -(-q // bq))
+    rows = max(1, -(-n // ranges))
+    return -(-rows // threads) * threads
+
+
 def _lib() -> ctypes.CDLL:
     return _build.load("lut16", _SIGNATURES)
 
@@ -105,8 +237,19 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def adc_smem_bytes(bq: int, kc: int, kl: int) -> int:
-    return int(_lib().lut16_adc_smem_bytes(bq, kc, kl))
+def adc_smem_bytes_cuda(bq: int, kc: int, kl: int, threads: int) -> int:
+    """The C side's K1 shared memory, to hold ``adc_smem_bytes`` against."""
+    return int(_lib().lut16_adc_smem_bytes(bq, kc, kl, threads))
+
+
+def adc_ctas_per_sm(bq: int, packed: bool, kc: int, kl: int,
+                    threads: int) -> int:
+    """CTAs of K1 one SM holds at once (the CUDA occupancy calculator)."""
+    lib = _lib()
+    got = int(lib.lut16_adc_ctas_per_sm(bq, int(packed), kc, kl, threads))
+    if got < 0:
+        _check(lib, -got, "lut16_adc occupancy")
+    return got
 
 
 def topk_smem_bytes(bq: int, kc: int, kl: int, cbuf: int) -> int:
@@ -126,15 +269,16 @@ def topk_ctas_per_sm(bq: int, packed: bool, kc: int, kl: int,
 
 
 def lut16_adc_cuda(codes: torch.Tensor, lut: torch.Tensor, *, packed: bool,
-                   bq: int, rows_per_cta: int) -> torch.Tensor:
-    """Launch K1: (Q, N) f32 scores."""
+                   plan: AdcPlan) -> torch.Tensor:
+    """Launch K1: (Q, N) f32 scores.  ``codes`` 16-byte aligned."""
     lib = _lib()
     n, kc = codes.shape
     q, kl, _ = lut.shape
     out = torch.empty((q, n), dtype=torch.float32, device=codes.device)
     code = lib.lut16_adc_launch(codes.data_ptr(), lut.data_ptr(),
-                                out.data_ptr(), n, kc, q, kl, int(packed), bq,
-                                rows_per_cta, _stream(codes))
+                                out.data_ptr(), n, kc, q, kl, int(packed),
+                                plan.bq, plan.threads, plan.rows_per_cta,
+                                _stream(codes))
     _check(lib, code, "lut16_adc")
     return out
 

@@ -11,13 +11,15 @@ launcher's ``cudaGetLastError()`` (the launchers raise on a nonzero code).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from .block_sparse import (TILE, block_sparse_cuda, dense_to_bcsr,
                            inverted_value_forward_cuda)
-from .lut16 import (LUT_WIDTH, THREADS, adc_smem_bytes, candidate_buffer_width,
-                    lut16_adc_cuda, lut16_adc_topk_cuda, pack_codes,
+from .lut16 import (LUT_WIDTH, SMEM_PER_CTA, THREADS, candidate_buffer_width,
+                    lut16_adc_cuda, lut16_adc_topk_cuda, pack_codes, plan_adc,
                     topk_ctas_per_sm, topk_smem_bytes, unpack_codes)
 from .ref import (PLAIN_CALLS, block_sparse_plain,
                   inverted_value_forward_plain, lut16_adc_plain,
@@ -33,8 +35,6 @@ __all__ = ["lut16_adc", "lut16_adc_topk", "lut16_adc_onehot",
 # materialises the scores and sorts them (as in the JAX package).
 MAX_FUSED_CANDIDATES = 1024
 
-# Shared memory a block may opt into on Hopper (227 KB).
-_SMEM_LIMIT = 232448
 # K2's largest query block, and the grid's largest y dimension (its ranges).
 _TOPK_MAX_BQ = 4
 _MAX_GRID_Y = 65535
@@ -51,28 +51,9 @@ def reset_counts() -> None:
             d[key] = 0
 
 
-def _resolve_lut16_blocks(q: int, n: int, kc: int, kl: int,
-                          device) -> tuple[int, int]:
-    """K1's block resolution: (bq, rows_per_cta).
-
-    bq: queries per CTA, the largest of 8, 4, 2, 1 that is not above the
-    next power of two of Q and whose shared memory fits.  rows_per_cta: a
-    multiple of the 256-row chunk, sized for about eight CTAs per SM.
-    Neither choice changes a score: every (query, row) sum is taken in
-    subspace order whatever the blocks."""
-    bq = min(8, 1 << max(q - 1, 0).bit_length())
-    while True:
-        smem = adc_smem_bytes(bq, kc, kl)
-        if smem <= _SMEM_LIMIT:
-            break
-        if bq == 1:
-            raise ValueError(f"LUT16 kernel needs {smem} bytes of shared "
-                             f"memory for K={kl}, more than {_SMEM_LIMIT}")
-        bq //= 2
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    q_blocks = -(-q // bq)
-    rows = -(-n * q_blocks // (8 * sms))
-    return bq, max(-(-rows // THREADS) * THREADS, THREADS)
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _resolve_topk_blocks(q: int, n: int, kc: int, kl: int, packed: bool,
@@ -91,18 +72,17 @@ def _resolve_topk_blocks(q: int, n: int, kc: int, kl: int, packed: bool,
     bq = min(_TOPK_MAX_BQ, 1 << max(q - 1, 0).bit_length())
     while True:
         smem = topk_smem_bytes(bq, kc, kl, cbuf)
-        if smem <= _SMEM_LIMIT:
+        if smem <= SMEM_PER_CTA:
             break
         if bq == 1:
             raise ValueError(f"K2 needs {smem} bytes of shared memory for "
-                             f"K={kl}, cbuf={cbuf}, more than {_SMEM_LIMIT}")
+                             f"K={kl}, cbuf={cbuf}, more than {SMEM_PER_CTA}")
         bq //= 2
     per_sm = topk_ctas_per_sm(bq, packed, kc, kl, cbuf)
     if per_sm == 0:
         raise ValueError(f"K2 at bq={bq}, K={kl}, cbuf={cbuf} fits no CTA "
                          "on an SM")
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    parts = max(1, sms * per_sm // -(-q // bq))
+    parts = max(1, _sm_count(device) * per_sm // -(-q // bq))
     rows = max(-(-n // parts), 8 * cbuf, -(-n // _MAX_GRID_Y))
     return bq, -(-rows // THREADS) * THREADS
 
@@ -163,10 +143,12 @@ def lut16_adc(codes: torch.Tensor, lut: torch.Tensor, *,
     lut = _validate_packed(kc, k, l, lut, packed)
     if codes.is_cuda:
         lut16 = _check_codes_lut(codes, lut)
-        bq, rows = _resolve_lut16_blocks(q, n, kc, lut16.shape[1],
-                                         codes.device)
-        out = lut16_adc_cuda(codes, lut16, packed=packed, bq=bq,
-                             rows_per_cta=rows)
+        if codes.data_ptr() % 16:
+            raise ValueError("K1 copies codes in 16-byte pieces: they must "
+                             "be 16-byte aligned")
+        plan = plan_adc(q, n, kc, lut16.shape[1], _sm_count(codes.device),
+                        packed)
+        out = lut16_adc_cuda(codes, lut16, packed=packed, plan=plan)
         LAUNCHES["lut16_adc"] += 1
     else:
         out = lut16_adc_plain(codes, lut, packed=packed)
@@ -297,7 +279,7 @@ def inverted_value_forward(ptr: torch.Tensor, rows: torch.Tensor,
         if t.dtype != dt or tuple(t.shape) != shape:
             raise TypeError(f"{name} must be {dt} {shape}, got {t.dtype} "
                             f"{tuple(t.shape)}")
-    if p_pad % chunk or bq * bn * 4 > _SMEM_LIMIT:
+    if p_pad % chunk or bq * bn * 4 > SMEM_PER_CTA:
         raise ValueError(f"B4 takes P_pad a multiple of chunk={chunk} and a "
                          f"{bq} x {bn} f32 tile in shared memory")
     out = inverted_value_forward_cuda(ptr, rows, qidx, contrib, **kw)
