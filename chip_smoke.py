@@ -5,16 +5,24 @@
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, builds a
 HybridIndex of the "querysim-shard" configuration on the card and drives
-its two serving paths through their entry points: the immutable three-pass
-search (phase ``slice``) and the mutable index — inserts into the delta
+its serving paths through their entry points: the immutable three-pass
+search (phase ``slice``), the mutable index — inserts into the delta
 shard, deletes, searches merged across main and delta, merge and retrain
-compaction (phase ``mutable``).  It holds every kernel against its plain
-PyTorch version on the card (phases ``kernels_checked`` and
-``value_forward``, the latter also driving ``score_inverted_vf``).  Each
-phase prints one JSON line; any failed check raises, and the script exits
-non-zero.  The last line is ``{"ok": true, "device": {...}}``.  Without a
-CUDA device, or without the rest of the repository beside it, it fails
-before printing a result.  It imports nothing of JAX.
+compaction (phase ``mutable``) — and the serving tier: ``QueryService``
+over the slice's index under a ragged request stream, with the shard
+fan-out, a refresh under load and per-pass times (phase ``service``), a
+durable service with its snapshot store and WAL, recovered bit for bit
+(phase ``durable``), ``python -m repro_torch.launch.serve --retrieval``
+plain, durable and restored (phase ``launch``), and the store the JAX
+package wrote (``tests/data/reference_store``) recovered on the card and
+held to the reference's results (phase ``reference_store``).  It holds
+every kernel against its plain PyTorch version on the card (phases
+``kernels_checked`` and ``value_forward``, the latter also driving
+``score_inverted_vf``).  Each phase prints one JSON line; any failed check
+raises, and the script exits non-zero.  The last line is ``{"ok": true,
+"device": {...}}``.  Without a CUDA device, or without the rest of the
+repository beside it, it fails before printing a result.  It imports
+nothing of JAX.
 
 The configuration: ``make_hybrid_dataset(num_points=524288, num_queries=128,
 d_sparse=200000, d_dense=200, nnz_per_row=134, alpha=2.0, dense_weight=2.0,
@@ -25,13 +33,15 @@ scan-and-select and the block-sparse head kernel).  The 524288 rows are a
 cut of one 2^22-row shard of a 2^30-row deployment; ``--rows`` cuts further
 for quick runs.  The mutable phase inserts ``--inserts`` (default 8192)
 perturbed copies of main rows in batches of 16 into the default
-64-slot delta shard.
+64-slot delta shard; the durable phase 2048 + 256 of them, on the same
+rows.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -127,20 +137,18 @@ def assert_close(a, b, what: str) -> float:
     return err
 
 
-def profile_search(torch, idx, ds, nq, h, alpha, beta, runs=3):
-    """Device time of one ``HybridIndex.search`` of ``nq`` queries by
-    kernel (torch.profiler), against the search's wall time under the
-    profiler: the busy share is their ratio."""
+def device_profile(torch, fn, runs=3) -> dict:
+    """Device time of ``fn()`` by kernel (torch.profiler), against its wall
+    time under the profiler: the busy share is their ratio."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    qs, qd = ds.q_sparse[:nq], ds.q_dense[:nq]
-    idx.search(qs, qd, h=h, alpha=alpha, beta=beta)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(runs):
-            idx.search(qs, qd, h=h, alpha=alpha, beta=beta)
+            fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / runs
     per_kernel = [(e.key, e.self_device_time_total / runs / 1e3, e.count // runs)
@@ -164,6 +172,13 @@ def profile_search(torch, idx, ds, nq, h, alpha, beta, runs=3):
                    "merge": share("topk_merge_kernel")},
             "top": [{"kernel": k[:80], "ms": ms, "calls": c}
                     for k, ms, c in per_kernel[:10]]}
+
+
+def profile_search(torch, idx, ds, nq, h, alpha, beta, runs=3):
+    """``device_profile`` of one ``HybridIndex.search`` of ``nq`` queries."""
+    qs, qd = ds.q_sparse[:nq], ds.q_dense[:nq]
+    return device_profile(
+        torch, lambda: idx.search(qs, qd, h=h, alpha=alpha, beta=beta), runs)
 
 
 # ---------------------------------------------------------------------------
@@ -1212,6 +1227,493 @@ def run_mutable(args, torch, ds, params, immutable_res):
     return launches6
 
 
+# ---------------------------------------------------------------------------
+# service: QueryService on the slice's index (micro-batching, the result
+# cache, the shard fan-out, refresh under load, per-pass time, spans)
+# ---------------------------------------------------------------------------
+
+def storage_bytes(torch, arrays) -> int:
+    """Bytes of the distinct device storages behind an ``IndexArrays``."""
+    from repro_torch.core.engine import _tensors
+    seen = {}
+    for t in _tensors(arrays):
+        st = t.untyped_storage()
+        seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def span_sums(traces, keys) -> dict:
+    """Sums of the tags ``keys`` over every span of finished traces."""
+    out = dict.fromkeys(keys, 0.0)
+    todo = list(traces)
+    while todo:
+        node = todo.pop()
+        for k in keys:
+            out[k] += node["tags"].get(k, 0.0)
+        todo += node["children"]
+    return out
+
+
+def run_service(args, torch, idx, ds, slice_res):
+    from repro_torch.core.baselines import exact_topk, recall_at_h
+    from repro_torch.core.hybrid import HybridIndex
+    from repro_torch.core.sparse_index import sparse_queries_to_padded
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import PLAIN_CALLS
+    from repro_torch.obs import Observability, pass_breakdown
+    from repro_torch.serve import QueryService
+
+    t_phase = time.perf_counter()
+    h, alpha, beta = 20, 25, 6
+    kw = dict(h=h, alpha=alpha, beta=beta)
+    params = idx.params
+    q_dims, q_vals = sparse_queries_to_padded(ds.q_sparse, idx.cols,
+                                              nq_max=params.nq_max)
+    q_dense = np.asarray(ds.q_dense, np.float32)
+    nq = q_dense.shape[0]
+    rng = np.random.default_rng(7)
+    requests = [rng.integers(0, nq, int(q)) for q in rng.integers(1, 33, 64)]
+    svc = QueryService(idx.engine, id_map=idx.pi, buckets=(1, 8, 32),
+                       cache_size=512, obs=Observability(trace=True), **kw)
+
+    def stream():
+        t0 = time.perf_counter()
+        out = [svc.search(q_dims[r], q_vals[r], q_dense[r]) for r in requests]
+        return out, time.perf_counter() - t0
+
+    # the service path, once, with every count at zero just before it
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    cold, cold_s = stream()
+    launches = dict(ops.LAUNCHES)
+    plain = dict(PLAIN_CALLS)
+    check(launches["lut16_adc_topk"] >= 1 and launches["block_sparse_matmul"]
+          >= 1, f"the service path did not launch K2 and K3: {launches}")
+    check(sum(plain.values()) == 0, f"the service ran plain versions: {plain}")
+    traces = svc.obs.tracer.take()
+    spans = span_sums(traces, ("dispatch_s", "merge_s"))
+    spans["search_s"] = sum(t["duration_s"] for t in traces)
+    warm, warm_s = stream()
+    rows = sum(len(r) for r in requests)
+    for r, (s, ids), (ws, wi) in zip(requests, cold, warm):
+        check(np.array_equal(ids, slice_res.ids[r]),
+              "service ids != HybridIndex.search's on the same rows")
+        check(np.array_equal(ws, s) and np.array_equal(wi, ids),
+              "a warm (cached) result differs from the cold one")
+        check(bool(np.isfinite(s).all()), "a served score is not finite")
+    score_err = 0.0
+    for r, (s, _) in zip(requests, cold):
+        want = slice_res.scores[r]
+        score_err = max(score_err, float(np.abs(s - want).max()))
+        check(bool((np.abs(s - want) <= ATOL + RTOL * np.abs(want)).all()),
+              f"service scores beyond rtol {RTOL} atol {ATOL} of the "
+              "search's")
+    info, shapes = svc.cache_info(), svc.jit_cache_info()
+    check(set(shapes.batch_shapes) <= {1, 8, 32}
+          and shapes.entries <= shapes.bound,
+          f"shape keys {shapes} beyond the bucketing bound")
+
+    # the shard fan-out.  With every row refined (alpha * h and beta * h
+    # >= N, the condition of the JAX package's own test of it) two row
+    # shards must give the one engine's ids.  At the service's c1 = 500 the
+    # two shards refine 500 candidates each, twice the one engine's, so
+    # their ids may differ where the one engine's pass-1 cut drops a
+    # neighbour: there the check is recall against exact search.
+    full = -(-idx.num_points // h)
+    exhaustive = dict(h=h, alpha=full, beta=full, cache_size=0)
+    rows8 = np.arange(8)
+    batch = (q_dims[rows8], q_vals[rows8], q_dense[rows8])
+    one = QueryService(idx.engine, id_map=idx.pi, **exhaustive)
+    two = QueryService(idx.engine, id_map=idx.pi, num_shards=2, **exhaustive)
+    s1, i1 = one.search(*batch)
+    s2, i2 = two.search(*batch)
+    shard_swaps = neighbour_swaps(i2, i1, s1)
+    shard_err = float(np.abs(s1 - s2).max())
+    check(bool((np.abs(s2 - s1) <= ATOL + RTOL * np.abs(s1)).all()),
+          "exhaustive 2-shard scores beyond tolerance of 1-shard scores")
+    one.close()
+    two.close()
+    two = QueryService(idx.engine, id_map=idx.pi, num_shards=2,
+                       cache_size=0, **kw)
+    s2c, i2c = two.search(q_dims, q_vals, q_dense)
+    two.close()
+    del one, two
+    gc.collect()
+    torch.cuda.empty_cache()
+    true_ids, _ = exact_topk(ds.q_sparse, ds.q_dense, ds.x_sparse,
+                             ds.x_dense, h, device="cuda")
+    recall_1 = recall_at_h(slice_res.ids, true_ids)
+    recall_2 = recall_at_h(i2c, true_ids)
+    check(recall_2 >= recall_1, f"2-shard recall@{h} {recall_2} below the "
+          f"one engine's {recall_1}")
+    sharded = {"exhaustive_rows": 8, "exhaustive_ids_equal":
+               bool(np.array_equal(i1, i2)),
+               "exhaustive_neighbour_swaps": shard_swaps,
+               "exhaustive_max_score_diff": shard_err,
+               "c1_500_rows_differing":
+                   int((i2c != slice_res.ids).any(axis=1).sum()),
+               "c1_500_recall_at_20": {"1_shard": recall_1,
+                                       "2_shards": recall_2}}
+
+    # per-pass time at Q = 1, 8, 32 (CUDA events) and the host's share at
+    # Q = 1: a one-row request's wall time against its device time
+    dev = idx.engine.arrays.codes.device
+    qd_t = torch.from_numpy(q_dims).to(dev)
+    qv_t = torch.from_numpy(q_vals).to(dev)
+    qe_t = torch.from_numpy(q_dense).to(dev)
+    breakdown = {}
+    for q in (1, 8, 32):
+        b = pass_breakdown(idx.engine, qd_t[:q], qv_t[:q], qe_t[:q], iters=10,
+                           **kw)
+        breakdown[str(q)] = {"pass1_ms": b["pass1_s"] * 1e3,
+                             "passes23_ms": b["pass23_s"] * 1e3,
+                             "full_ms": b["full_s"] * 1e3,
+                             "pass1_fraction": b["pass1_fraction"],
+                             "timer": b["timer"]}
+    nocache = QueryService(idx.engine, id_map=idx.pi, cache_size=0, **kw)
+    q1 = device_profile(torch, lambda: nocache.search(
+        q_dims[:1], q_vals[:1], q_dense[:1]), runs=10)
+    nocache.close()
+    if isinstance(q1.get("device_ms"), float):
+        q1["host_share"] = 1.0 - q1["busy_share"]
+
+    stats = svc.stats()
+    svc.close()
+
+    # refresh under a submit() stream: a rebuilt generation (another k-means
+    # seed) swapped in while searches are in flight, on a service without a
+    # result cache, so every result comes from a search of the batch
+    t0 = time.perf_counter()
+    idx_b = HybridIndex.build(ds.x_sparse, ds.x_dense,
+                              dataclasses.replace(params, seed=params.seed + 1),
+                              device="cuda")
+    rebuild_s = time.perf_counter() - t0
+    ref_a = QueryService(idx.engine, id_map=idx.pi, cache_size=0,
+                         **kw).search(*batch)
+    ref_b = QueryService(idx_b.engine, id_map=idx_b.pi, cache_size=0,
+                         **kw).search(*batch)
+    check(not np.array_equal(ref_a[0], ref_b[0]),
+          "the two generations are indistinguishable")
+    gen_a_bytes = storage_bytes(torch, idx.engine.arrays)
+    live = QueryService(idx.engine, id_map=idx.pi, cache_size=0, **kw)
+    # the pool's threads first: each thread's first matmul allocates its
+    # own cuBLAS workspace, which would hide what the refresh frees
+    for f in [live.submit(*batch) for _ in range(4)]:
+        f.result(timeout=300)
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated()
+    futures = [live.submit(*batch) for _ in range(6)]
+    # once one has finished, the pool's threads hold generation a in the
+    # next ones: the refresh swaps under them and frees a after the last
+    futures[0].result(timeout=300)
+    t0 = time.perf_counter()
+    live.refresh(idx_b.engine, id_map=idx_b.pi)
+    swap_s = time.perf_counter() - t0
+    futures += [live.submit(*batch) for _ in range(4)]
+    results = [f.result(timeout=300) for f in futures]
+    gens = []
+    for s, ids in results:
+        from_a = np.array_equal(s, ref_a[0]) and np.array_equal(ids, ref_a[1])
+        from_b = np.array_equal(s, ref_b[0]) and np.array_equal(ids, ref_b[1])
+        check(from_a != from_b, "a result mixes the two generations")
+        gens.append("a" if from_a else "b")
+    check(gens[6:] == ["b"] * 4, "a search after refresh() saw generation a")
+    torch.cuda.synchronize()
+    mem_after = torch.cuda.memory_allocated()
+    freed = mem_before - mem_after
+    check(freed >= gen_a_bytes,
+          f"memory_allocated fell by {freed} B after refresh(), less than "
+          f"the retired generation's {gen_a_bytes} B")
+    live.close()
+    del idx_b, live
+    emit("service", requests=len(requests), rows=rows,
+         buckets=list(svc.buckets), cold_s=cold_s, warm_s=warm_s,
+         cold_qps=rows / cold_s, warm_qps=rows / warm_s,
+         hit_rate=info.hit_rate, cache=dataclasses.asdict(info),
+         shape_keys=dataclasses.asdict(shapes), launches=launches,
+         plain_calls=plain, ids_equal_search=True,
+         max_score_diff_vs_search=score_err, sharded=sharded,
+         span_totals_s=spans,
+         pass_breakdown=breakdown, q1_request=q1,
+         refresh={"rebuild_s": rebuild_s, "swap_ms": swap_s * 1e3,
+                  "generations_seen": "".join(gens),
+                  "memory_allocated_before": mem_before,
+                  "memory_allocated_after": mem_after,
+                  "bytes_freed": freed, "retired_generation_bytes": gen_a_bytes},
+         stats={k: stats[k] for k in ("requests", "batches", "refreshes",
+                                      "version")},
+         seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# durable: QueryService(persist_dir=...) on the mutable slice, recovery
+# ---------------------------------------------------------------------------
+
+def dir_bytes(root: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(root) for f in fs)
+
+
+def percentile_ms(xs, q) -> float:
+    return float(np.percentile(np.asarray(xs), q) * 1e3)
+
+
+# inserts of the durable phase: past 1024 delta slots, so that the
+# recovered delta engine scores through K1 + sort
+DURABLE_INSERTS = 2048
+
+
+def run_durable(torch, ds, params):
+    import shutil
+    import tempfile
+
+    from repro_torch import persist
+    from repro_torch.core.hybrid import HybridIndex
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import PLAIN_CALLS
+    from repro_torch.serve import QueryService
+
+    t_phase = time.perf_counter()
+    kw = dict(h=20, alpha=25, beta=6, cache_size=0, auto_compact=False)
+    tmp = tempfile.mkdtemp(prefix="durable-")
+    root = os.path.join(tmp, "store")
+    disk_free = shutil.disk_usage(tmp).free
+    try:
+        t0 = time.perf_counter()
+        midx = HybridIndex.build(ds.x_sparse, ds.x_dense, params,
+                                 mutable=True, device="cuda")
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        svc = QueryService(index=midx, persist_dir=root, **kw)
+        bootstrap_s = time.perf_counter() - t0
+        bootstrap_bytes = dir_bytes(root)
+
+        # time the WAL's two halves: the append (frame + flush under the
+        # mutation lock) and the fsync that acks it (group commit)
+        dur = svc._durability
+        append_s, fsync_s, ack_s = [], [], []
+
+        def timed(fn, sink):
+            def call(*a, **k):
+                t = time.perf_counter()
+                out = fn(*a, **k)
+                sink.append(time.perf_counter() - t)
+                return out
+            return call
+
+        dur.log_insert = timed(dur.log_insert, append_s)
+        dur.sync = timed(dur.sync, fsync_s)
+        n0 = DURABLE_INSERTS
+        xs_new, xd_new = perturbed_rows(ds, n0 + 256, seed=9)
+        new_ids = []
+        t0 = time.perf_counter()
+        for lo in range(0, n0, 16):
+            t = time.perf_counter()
+            new_ids += svc.insert(xs_new[lo:lo + 16],
+                                  xd_new[lo:lo + 16]).tolist()
+            ack_s.append(time.perf_counter() - t)
+        insert_s = time.perf_counter() - t0
+        rng = np.random.default_rng(10)
+        main_dead = rng.choice(ds.x_sparse.shape[0], size=16, replace=False)
+        check(svc.delete(new_ids[::32]) == len(new_ids[::32]), "deletes")
+        check(svc.delete(main_dead) == 16, "main deletes")
+        t0 = time.perf_counter()
+        svc.checkpoint()
+        checkpoint_s = time.perf_counter() - t0
+        checkpoint_bytes = dir_bytes(root)
+        tail = []
+        for lo in range(n0, n0 + 256, 16):
+            tail += svc.insert(xs_new[lo:lo + 16],
+                               xd_new[lo:lo + 16]).tolist()
+        check(svc.delete(tail[:8]) == 8, "tail deletes")
+        live = svc.search_sparse(ds.q_sparse, ds.q_dense)
+        live_stats = svc.stats()
+        svc.close()
+        del svc, midx, dur
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        rsvc = QueryService(restore_from=root, **kw)
+        recover_s = time.perf_counter() - t0
+        # the recovered service's search, counted: main (K2 at c1 = 900,
+        # K3) + delta (K1 past 1024 slots)
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        got = rsvc.search_sparse(ds.q_sparse, ds.q_dense)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        check(sum(PLAIN_CALLS.values()) == 0,
+              "the recovered service ran a plain version")
+        check(launches["lut16_adc"] >= 1 and launches["lut16_adc_topk"] >= 1
+              and launches["block_sparse_matmul"] >= 1,
+              f"the recovered search did not launch K1, K2 and K3: "
+              f"{launches}")
+        check(np.array_equal(got[1], live[1]) and np.array_equal(got[0],
+                                                                 live[0]),
+              "recovered ids/scores != the live service's, bit for bit")
+        rstats = rsvc.stats()
+        check(rstats["recovered_replayed"] == 256 // 16 + 1,
+              f"replayed {rstats['recovered_replayed']} WAL records, "
+              "expected the 17 after the checkpoint")
+        before = persist.read_current(root)["snapshot"]
+        t0 = time.perf_counter()
+        rsvc.compact()
+        compact_s = time.perf_counter() - t0
+        after_s, after_i = rsvc.search_sparse(ds.q_sparse, ds.q_dense)
+        check(bool(np.isfinite(after_s).all()), "post-compaction scores")
+        rsvc.close()
+        cur = persist.read_current(root)
+        manifest = json.load(open(os.path.join(root, cur["snapshot"],
+                                               "manifest.json")))
+        wal = persist.MutationWAL(os.path.join(root, "wal"))
+        tail_records = len(wal.records(from_seq=manifest["replay_from_seq"]))
+        wal_files = sorted(os.listdir(os.path.join(root, "wal")))
+        wal.close()
+        check(cur["snapshot"] != before and tail_records == 0,
+              "compact() did not cut a snapshot and truncate the WAL")
+        emit("durable", rows=ds.x_sparse.shape[0], disk_free=disk_free,
+             build_s=build_s, bootstrap_s=bootstrap_s,
+             bootstrap_store_bytes=bootstrap_bytes,
+             inserts={"rows": n0, "batch": 16, "seconds": insert_s,
+                      "rows_per_s": n0 / insert_s,
+                      "ack_p50_ms": percentile_ms(ack_s, 50),
+                      "ack_p99_ms": percentile_ms(ack_s, 99),
+                      "wal_append_p50_ms": percentile_ms(append_s, 50),
+                      "wal_append_p99_ms": percentile_ms(append_s, 99),
+                      "wal_fsync_p50_ms": percentile_ms(fsync_s, 50),
+                      "wal_fsync_p99_ms": percentile_ms(fsync_s, 99)},
+             checkpoint_s=checkpoint_s, checkpoint_store_bytes=checkpoint_bytes,
+             recover_s=recover_s, replayed=rstats["recovered_replayed"],
+             delta_rows=live_stats["delta_rows"],
+             deleted_pending=live_stats["deleted_pending"],
+             recovered_equals_live=True, launches=launches,
+             compact_s=compact_s, snapshot_after_compact=cur["snapshot"],
+             wal_files_after_compact=wal_files,
+             store_bytes_after_compact=dir_bytes(root),
+             seconds=time.perf_counter() - t_phase)
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# launch: python -m repro_torch.launch.serve --retrieval, plain / durable /
+# restored, as processes of their own on the card
+# ---------------------------------------------------------------------------
+
+def run_launch():
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="launch-")
+    env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")}
+    out = {}
+    try:
+        store = os.path.join(tmp, "store")
+        for name, extra in (("plain", []), ("persist", ["--persist-dir", store]),
+                            ("restore", ["--restore", store])):
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.serve",
+                 "--retrieval", *extra], capture_output=True, text=True,
+                timeout=300, env=env, cwd=REPO)
+            check(r.returncode == 0, f"launch.serve {name} exited "
+                  f"{r.returncode}: {r.stderr[-2000:]}")
+            lines = [ln for ln in r.stdout.splitlines()
+                     if not ln.startswith("stats")]
+            out[name] = {"seconds": time.perf_counter() - t0,
+                         "stdout": [ln[:160] for ln in lines]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("launch", runs=out, seconds=time.perf_counter() - t_phase)
+
+
+# ---------------------------------------------------------------------------
+# reference_store: the JAX package's committed store, recovered on the card
+# ---------------------------------------------------------------------------
+
+def neighbour_swaps(got_ids, want_ids, want_s) -> int:
+    """Ids must equal the reference's, except that two neighbours whose
+    reference scores differ by less than ATOL may trade places; returns the
+    number of such swaps and raises on any other difference."""
+    swaps = 0
+    for r in range(want_ids.shape[0]):
+        p = 0
+        while p < want_ids.shape[1]:
+            if got_ids[r, p] == want_ids[r, p]:
+                p += 1
+                continue
+            q = p + 1
+            check(q < want_ids.shape[1]
+                  and got_ids[r, p] == want_ids[r, q]
+                  and got_ids[r, q] == want_ids[r, p]
+                  and abs(want_s[r, p] - want_s[r, q]) < ATOL,
+                  f"row {r} position {p}: id {got_ids[r, p]} where the "
+                  f"reference has {want_ids[r, p]}, not a neighbour swap")
+            swaps += 1
+            p += 2
+    return swaps
+
+
+def run_reference_store(torch):
+    import shutil
+    import tempfile
+
+    import scipy.sparse as sp
+
+    from repro_torch import persist
+    from repro_torch.core.engine import ScoringEngine
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import PLAIN_CALLS
+
+    data = os.path.join(REPO, "tests", "data")
+    e = np.load(os.path.join(data, "reference_store_expected.npz"))
+    q = sp.csr_matrix((e["q_data"], e["q_indices"], e["q_indptr"]),
+                      shape=tuple(e["q_shape"]))
+    kw = dict(h=int(e["h"]), alpha=int(e["alpha"]), beta=int(e["beta"]))
+    want_ids, want_s = e["ids"], e["scores"]
+    tmp = tempfile.mkdtemp(prefix="refstore-")
+    try:
+        root = os.path.join(tmp, "store")
+        shutil.copytree(os.path.join(data, "reference_store"), root)
+        rec = persist.recover(root, backend="cuda", device="cuda")
+        rec.durability.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(rec.replayed == int(e["replayed"]), "WAL records replayed")
+    idx = rec.index
+    out = {}
+    for name, fused in (("fused", True), ("materialised", False)):
+        idx.engine = ScoringEngine(arrays=idx.engine.arrays,
+                                   backend=idx.engine.backend, fused=fused)
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        res = idx.search(q, e["q_dense"], **kw)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        check(sum(PLAIN_CALLS.values()) == 0, "a plain version ran")
+        check(launches["block_sparse_matmul"] >= 1
+              and launches["lut16_adc_topk" if fused else "lut16_adc"] >= 1,
+              f"{name}: the kernels did not run: {launches}")
+        fin = np.isfinite(want_s)
+        check(np.array_equal(np.isfinite(res.scores), fin),
+              f"{name}: -inf slots differ")
+        err = np.abs(res.scores - want_s)[fin]
+        check(bool((err <= ATOL + RTOL * np.abs(want_s[fin])).all()),
+              f"{name}: scores beyond rtol {RTOL} atol {ATOL}")
+        out[name] = {"launches": launches,
+                     "neighbour_swaps": neighbour_swaps(res.ids, want_ids,
+                                                        want_s),
+                     "ids_equal": bool(np.array_equal(res.ids, want_ids)),
+                     "max_abs_err": float(err.max(initial=0.0))}
+    emit("reference_store", rows=idx.num_points,
+         delta_rows=idx.mutable_state.delta.live_count,
+         replayed=rec.replayed, queries=int(q.shape[0]), results=out)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=524288,
@@ -1248,13 +1750,27 @@ def main() -> int:
     rows[1]["profile_split"] = k2_profile_split(profiles)
     rows.append(run_value_forward(torch, idx, queries))
     params = idx.params
+    # the service retires idx's generation at its refresh: idx goes after
+    service = run_service(args, torch, idx, ds, res)
     del idx, queries
+    gc.collect()
     torch.cuda.empty_cache()
     # K1 runs on the mutable path: its count comes from that path's run
     rows[0]["launches"] = run_mutable(args, torch, ds, params,
                                       res)["lut16_adc"]
     for r, path in zip(rows, ("mutable", "slice", "slice", "value_forward")):
         r["path"] = path
+    gc.collect()
+    torch.cuda.empty_cache()
+    durable = run_durable(torch, ds, params)
+    del ds
+    gc.collect()
+    torch.cuda.empty_cache()
+    for r in rows:
+        r["service_launches"] = {"service": service[r["name"]],
+                                 "durable": durable[r["name"]]}
+    run_launch()
+    run_reference_store(torch)
     emit("total", seconds=time.perf_counter() - t_start)
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

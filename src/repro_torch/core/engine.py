@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import hashlib
 
 import numpy as np
 import torch
@@ -36,6 +37,7 @@ __all__ = [
     "Backend", "IndexArrays", "ScoringEngine", "adc_scores",
     "scatter_queries_compact", "scatter_head_queries", "pass1_bias",
     "pass1_scores", "three_pass_search", "tombstone_mask",
+    "query_fingerprint", "release_index_arrays",
 ]
 
 
@@ -343,3 +345,91 @@ class ScoringEngine:
         return three_pass_search(self.arrays, q_dims, q_vals, q_dense,
                                  h=h, c1=c1, c2=c2, backend=self.backend,
                                  fused=self.fused)
+
+    def pass1_topk(self, q_dims: torch.Tensor, q_vals: torch.Tensor,
+                   lut: torch.Tensor, k: int):
+        """Pass-1-only local top-k (the distributed fan-out building block):
+        the same route, and the same bits, as pass 1 of ``search``."""
+        if _use_fused_pass1(self.backend, self.fused, k):
+            return _fused_pass1_topk(self.arrays, q_dims, q_vals, lut, k,
+                                     self.backend)
+        scores = pass1_scores(self.arrays, q_dims, q_vals, lut, self.backend)
+        return res.topk_candidates(scores, k)
+
+
+# ---------------------------------------------------------------------------
+# Serving hooks (DESIGN.md §5): result-cache fingerprints and the donation
+# hook for double-buffered IndexArrays swaps
+# ---------------------------------------------------------------------------
+
+def query_fingerprint(q_dims, q_vals, q_dense, *extra) -> str:
+    """Content hash of one query (or query batch) for result caching; a
+    copy of the JAX package's, so the same bytes give the same key.
+
+    Hashes the raw bytes of the padded sparse query (dims + vals), the dense
+    query, and any extra context (search params, index generation) — two
+    requests collide only if every input byte agrees, so a cache keyed on
+    this digest can never serve a stale or mismatched result.  Host-side
+    numpy; meant to run once per request on arrays that are already on host.
+    """
+    h = hashlib.blake2b(digest_size=16)
+    for a in (q_dims, q_vals, q_dense):
+        a = np.ascontiguousarray(np.asarray(a))
+        h.update(str((a.shape, a.dtype.str)).encode())
+        h.update(a.tobytes())
+    for e in extra:
+        h.update(repr(e).encode())
+    return h.hexdigest()
+
+
+def _tensors(tree):
+    """Every tensor reachable through nested dataclasses, lists, tuples."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        for f in dataclasses.fields(tree):
+            yield from _tensors(getattr(tree, f.name))
+    elif isinstance(tree, (list, tuple)):
+        for t in tree:
+            yield from _tensors(t)
+
+
+def _storage_key(t: torch.Tensor) -> tuple:
+    st = t.untyped_storage()
+    return (t.device, st.data_ptr())
+
+
+def release_index_arrays(arrays: IndexArrays, *, keep=()) -> int:
+    """Donation hook for double-buffered index swaps (DESIGN.md §5).
+
+    Frees the storages of a RETIRED ``IndexArrays`` copy so their device
+    memory goes back to the caching allocator at once, while other Python
+    references may still exist: ``untyped_storage().resize_(0)``, the
+    counterpart of JAX's ``Array.delete()``.  Each tensor of ``arrays``
+    whose storage is freed (now, or already by an earlier call through
+    another view) is then set to an empty tensor, so a later use of a
+    retired leaf fails on its shape instead of reading freed memory.
+
+    A storage that any tensor of the ``keep`` trees also uses is skipped.
+    The comparison is by STORAGE, not by tensor object: a shard of
+    ``split_index_arrays`` holds views of its parent's codes and residual
+    rows (a row slice is already contiguous), and freeing a view's storage
+    would free the parent's.  Storages that do not own their memory are
+    skipped too (a CPU tensor made by ``torch.from_numpy`` borrows the
+    array's; it goes when its last reference does).  Returns the number of
+    storages freed.  Callers must
+    ensure no in-flight computation still reads ``arrays`` (QueryService
+    refcounts generations for exactly this); work already queued on the
+    same stream is safe, since the allocator hands the block out again
+    only to work queued after it."""
+    keep_keys = {_storage_key(t) for tree in keep for t in _tensors(tree)}
+    freed = 0
+    for t, key in [(t, _storage_key(t)) for t in _tensors(arrays)]:
+        st = t.untyped_storage()
+        if key in keep_keys or not st.resizable():
+            continue
+        if st.nbytes():
+            st.resize_(0)
+            freed += 1
+        t.set_()
+    return freed

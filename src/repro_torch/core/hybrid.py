@@ -17,7 +17,8 @@ Search converts queries to the padded layout, runs the engine's three-pass
 search on the device and maps result positions back to original ids.  An
 index built with ``mutable=True`` also takes ``insert`` / ``delete`` /
 ``compact`` (core/streaming.py), and its search merges the main engine
-with the delta shard.
+with the delta shard; ``save`` / ``load`` write and recover a durable
+store (persist/).
 """
 
 from __future__ import annotations
@@ -212,18 +213,29 @@ class HybridIndex:
                                              delta_capacity=delta_capacity)
         return idx
 
-    # -- persistence -------------------------------------------------------
+    # -- persistence (thin wrappers over repro_torch/persist, DESIGN.md §7)
     @classmethod
-    def load(cls, root: str, *, backend=None) -> "HybridIndex":
-        raise NotImplementedError(
-            "loading a snapshot store is not ported yet: ROADMAP queue A "
-            "item 8 (repro_torch.interchange carries an index across from "
-            "numpy arrays)")
+    def load(cls, root: str, *, backend=None,
+             device="cuda") -> "HybridIndex":
+        """Recover a mutable index from a durable store (the JAX package's
+        format too) onto ``device``: committed snapshot (checksum-verified
+        leaf blobs) + WAL-tail replay through the streaming machinery —
+        bit-identical, ids and scores, to the index at its last
+        durably-acked mutation on the same device.  ``backend`` overrides
+        the recorded engine backend (any backend serves any snapshot)."""
+        from ..persist import recover
+        rec = recover(root, backend=backend, device=device)
+        rec.durability.close()       # load-only: no appends from here
+        return rec.index
 
     def save(self, root: str) -> str:
-        raise NotImplementedError(
-            "saving a snapshot store is not ported yet: ROADMAP queue A "
-            "item 8")
+        """Bootstrap a durable store for this freshly built mutable index
+        (initial snapshot + empty WAL) without keeping a WAL handle open.
+        Serving with durability goes through
+        ``QueryService(persist_dir=…)`` instead."""
+        from ..persist import bootstrap
+        bootstrap(root, self).close()
+        return root
 
     # -- streaming mutation (thin wrappers over core/streaming.py) ---------
     def _mutable(self):

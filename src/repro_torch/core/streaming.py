@@ -42,6 +42,7 @@ the old.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import scipy.sparse as sp
@@ -528,12 +529,16 @@ def plan_overfetch(engines, h: int, deleted) -> list[int]:
 
 def fanout_search(engines, h_fetch, offsets, id_map, delta_engine,
                   delta_ids, deleted, qd, qv, qe, *, h: int, alpha: int,
-                  beta: int):
+                  beta: int, qn: int | None = None, executor=None,
+                  dedup_upserts: bool = False, timing: dict | None = None):
     """THE fan-out merge (DESIGN.md §6.2): dispatch every main engine, then
     the delta engine, before any result reaches the host (CUDA launches
     are asynchronous, so the engines' device work queues back to back),
     assemble the per-engine candidates in the common EXTERNAL id space, and
     merge top-h on the host with main-generation tombstones dropped.
+    Shared by ``search_mutable`` (one engine, one offset) and
+    ``serve.query_service.QueryService._run_batch`` (per-shard engines +
+    bucket padding).
 
     engines/h_fetch/offsets: the main engines, their fetch depths
     (``plan_overfetch``) and each engine's global row offset; ``id_map``
@@ -541,25 +546,50 @@ def fanout_search(engines, h_fetch, offsets, id_map, delta_engine,
     ``delta_engine`` fetches its whole capacity, with ``delta_ids`` mapping
     slots to external ids.  An engine is anything with
     ``.search(qd, qv, qe, h=, alpha=, beta=) -> (scores, ids, ...)`` and
-    ``.num_points``.  Returns ``(scores, ids)`` (Q, h) numpy arrays."""
-    outs = [e.search(qd, qv, qe, h=hf, alpha=alpha, beta=beta)
-            for e, hf in zip(engines, h_fetch)]
-    delta_out = None
+    ``.num_points``.  ``qn`` trims bucket padding (rows at and after it)
+    before the merge.  ``executor`` (a ``concurrent.futures`` executor)
+    runs the dispatches concurrently, for engines that block; the
+    in-process path leaves it None.  ``dedup_upserts`` forwards to
+    ``merge_topk_host``.  ``timing``, when a dict, receives ``dispatch_s``
+    (dispatch + collect of every engine) and ``merge_s`` (device-to-host
+    copies + host merge) wall seconds, the span tags ``QueryService``
+    feeds its ``serve.batch`` children (DESIGN.md §9.2); on the card the
+    device wait lands in ``merge_s``, at the first copy to the host,
+    unless a kernel wrapper already synchronised.  Returns ``(scores,
+    ids)`` (Q, h) numpy arrays."""
+    t0 = time.perf_counter()
+    jobs = list(zip(engines, h_fetch))
     if delta_engine is not None:
-        delta_out = delta_engine.search(qd, qv, qe, h=delta_engine.num_points,
-                                        alpha=alpha, beta=beta)
+        jobs.append((delta_engine, delta_engine.num_points))
+
+    def search(engine, h_engine):
+        return engine.search(qd, qv, qe, h=h_engine, alpha=alpha, beta=beta)
+
+    if executor is not None:
+        futs = [executor.submit(search, *job) for job in jobs]
+        outs = [f.result() for f in futs]
+    else:
+        outs = [search(*job) for job in jobs]
+    delta_out = outs.pop() if delta_engine is not None else None
+    t1 = time.perf_counter()
     # assemble per-engine parts in a COMMON id space; shards stay in row
     # order so the stable merge breaks ties like a top-k of the whole
+    rows = slice(None) if qn is None else slice(0, qn)
     parts = []
     for out, off in zip(outs, offsets):
-        ids = to_numpy(out[1]).astype(np.int64) + int(off)
+        ids = to_numpy(out[1][rows]).astype(np.int64) + int(off)
         if id_map is not None:
             ids = np.asarray(id_map)[ids]
-        parts.append((to_numpy(out[0]), ids, True))
+        parts.append((to_numpy(out[0][rows]), ids, True))
     if delta_out is not None:
-        pos = to_numpy(delta_out[1]).astype(np.int64)
-        parts.append((to_numpy(delta_out[0]), delta_ids[pos], False))
-    return merge_topk_host(parts, h, drop_ids=deleted)
+        pos = to_numpy(delta_out[1][rows]).astype(np.int64)
+        parts.append((to_numpy(delta_out[0][rows]), delta_ids[pos], False))
+    out = merge_topk_host(parts, h, drop_ids=deleted,
+                          dedup_upserts=dedup_upserts)
+    if timing is not None:
+        timing["dispatch_s"] = t1 - t0
+        timing["merge_s"] = time.perf_counter() - t1
+    return out
 
 
 def search_mutable(index, q_sparse, q_dense, h: int = 20,

@@ -6,8 +6,10 @@ assembles a port ``HybridIndex`` through the port's own
 ``IndexArrays.build`` (which derives the head scatter table and BCSR).
 ``mutable_index_from_numpy`` also attaches a port ``MutableState`` over the
 corpus the reference index was built from, so both packages serve the same
-main generation.  Reading a snapshot directory from disk is left to the
-persistence port.
+main generation.  Reading a snapshot directory from disk is
+``persist.snapshot.load_snapshot`` (``persist.recover`` with the WAL),
+which assembles the index through ``hybrid_index_from_numpy`` under the
+same leaf names.
 """
 
 from __future__ import annotations

@@ -194,8 +194,8 @@ def test_build_params_and_unported_paths(small_hybrid):
     mutable = HybridIndex.build(ds.x_sparse[:300], ds.x_dense[:300],
                                 mutable=True, device="cpu")
     assert mutable.mutable_state.live_rows == 300
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        HybridIndex.load("nowhere")
+    with pytest.raises(FileNotFoundError, match="no committed snapshot"):
+        HybridIndex.load("nowhere", device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             HybridIndex.build(ds.x_sparse[:10], ds.x_dense[:10])

@@ -1,7 +1,9 @@
 """The port stands alone: no file of src/repro_torch, and neither
 chip_smoke.py nor tools/lut16_probe.py, imports jax or the JAX package
-``repro``, and the package imports in a process where jax cannot be
-imported at all."""
+``repro``, and the package (its serving, persistence, observability,
+checkpoint and launch subpackages included) imports in a process where jax
+cannot be imported at all.  ``tools/make_reference_store.py`` is the
+reference's tool and imports ``repro`` on purpose."""
 
 import ast
 import os
@@ -39,7 +41,9 @@ def test_package_imports_without_jax():
             "sys.modules['repro'] = None\n"
             "import repro_torch, repro_torch.interchange, "
             "repro_torch.core.baselines, repro_torch.kernels.ops, "
-            "repro_torch.data\n"
+            "repro_torch.data, repro_torch.serve, repro_torch.persist, "
+            "repro_torch.obs, repro_torch.checkpoint, "
+            "repro_torch.launch.serve\n"
             "assert 'jax' not in {m.split('.')[0] for m, v in "
             "sys.modules.items() if v is not None}\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
