@@ -126,13 +126,14 @@ def max_abs(a, b) -> float:
     return float((a[fin] - b[fin]).abs().max())
 
 
-def assert_close(a, b, what: str) -> float:
+def assert_close(a, b, what: str, rtol: float = RTOL,
+                 atol: float = ATOL) -> float:
     import torch
     err = max_abs(a, b)
     fin = torch.isfinite(b)
     check(bool(torch.all((a[fin] - b[fin]).abs()
-                         <= ATOL + RTOL * b[fin].abs())),
-          f"{what}: max abs err {err} beyond rtol {RTOL} atol {ATOL}")
+                         <= atol + rtol * b[fin].abs())),
+          f"{what}: max abs err {err} beyond rtol {rtol} atol {atol}")
     check(bool(torch.equal(a[~fin], b[~fin])), f"{what}: -inf slots differ")
     return err
 
@@ -291,7 +292,8 @@ def run_slice(args, torch):
          packed_max_abs_err=packed_err, c1_2000_routes_k1=True,
          search_latency=latency, search_profile=profiles,
          max_memory_allocated=torch.cuda.max_memory_allocated())
-    return idx, ds, (q_dims, q_vals, q_dense), launches, c1, res, profiles
+    return (idx, ds, (q_dims, q_vals, q_dense), launches, c1, res, profiles,
+            true_ids)
 
 
 def k2_profile_split(profiles) -> dict:
@@ -973,6 +975,287 @@ def run_value_forward(torch, idx, queries):
                       "src/repro_torch/csrc/block_sparse.cu",
                       "src/repro/kernels/block_sparse.py:172", launches, m,
                       nbytes, entries)
+
+
+# ---------------------------------------------------------------------------
+# sharded: the row-sharded searches of core/distributed.py on the slice
+# ---------------------------------------------------------------------------
+
+def topk_ties(got_ids, got_s, want_ids, want_s, what: str,
+              rtol: float = RTOL, atol: float = ATOL) -> int:
+    """Row-wise top-k agreement: scores position by position within the
+    tolerance; ids equal, except where the reference holds a near-tie (the
+    id sits elsewhere in its list at a score within the tolerance, or, for
+    an id it did not return, its score ties the reference's last).  Returns
+    the number of such tie differences; raises on any other."""
+    got_s, want_s = np.asarray(got_s), np.asarray(want_s)
+    check(got_s.shape == want_s.shape, f"{what}: shape {got_s.shape} != "
+          f"{want_s.shape}")
+    check(bool((np.abs(got_s - want_s) <= atol + rtol * np.abs(want_s)).all()),
+          f"{what}: scores beyond rtol {rtol} atol {atol}")
+
+    def near(a, b):
+        return abs(a - b) <= atol + rtol * abs(b)
+
+    ties = 0
+    for r in range(want_ids.shape[0]):
+        pos_of = {int(i): p for p, i in enumerate(want_ids[r])}
+        for p in np.flatnonzero(got_ids[r] != want_ids[r]):
+            gid = int(got_ids[r, p])
+            ok = (near(want_s[r, pos_of[gid]], want_s[r, p]) if gid in pos_of
+                  else near(got_s[r, p], want_s[r, -1]))
+            check(ok, f"{what}: row {r} position {p}: id {gid} where the "
+                  f"reference has {int(want_ids[r, p])} without a tie")
+            ties += 1
+    return ties
+
+
+def timed_ms(torch, fn, runs: int = 5) -> float:
+    """Median host-clock milliseconds of ``fn()``, a synchronize at both
+    ends, after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def stacked_inverted(torch, dist, arrays, num_shards):
+    """Each shard's inverted lists (local row ids) from
+    ``split_index_arrays``, stacked per shard: (S * d_active, L).  The head
+    block takes no part in the sharded searches, so it is not split."""
+    shards, _ = dist.split_index_arrays(
+        dataclasses.replace(arrays, head=None), num_shards)
+    return (torch.cat([sh.inv_index.rows for sh in shards]),
+            torch.cat([sh.inv_index.vals for sh in shards]))
+
+
+def run_sharded(torch, idx, queries, true_ids):
+    from repro_torch.core import distributed as dist
+    from repro_torch.core import residual as res
+    from repro_torch.core.baselines import recall_at_h
+    from repro_torch.core.engine import scatter_queries_compact
+    from repro_torch.core.pq import adc_lut, adc_scores_ref
+    from repro_torch.core.sparse_index import score_inverted
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import PLAIN_CALLS, stable_topk
+
+    t_phase = time.perf_counter()
+    arrays = idx.engine.arrays
+    q_dims, q_vals, q_dense = queries
+    lut = adc_lut(q_dense, arrays.codebooks)
+    q_cols = scatter_queries_compact(q_dims, q_vals, arrays.d_active)
+    h, alpha, beta = 20, 25, 6
+    counts = (1, 2, 4)
+    inv = {s: stacked_inverted(torch, dist, arrays, s) for s in counts}
+
+    def devices(s):
+        return ["cuda:0"] * s
+
+    def pass1(s, k):
+        return dist.sharded_pass1_topk(devices(s), arrays.codes, lut, *inv[s],
+                                       q_dims, q_vals, k=k, adc="cuda")
+
+    def search3(s, a, ar=arrays, inv_s=None, nq=None):
+        sl = slice(None, nq)
+        dres, sres = ar.dense_residual, ar.sparse_residual
+        return dist.sharded_three_pass_topk(
+            devices(s), ar.codes, lut[sl], *(inv[s] if inv_s is None
+                                              else inv_s), dres.q,
+            dres.scale, dres.zero, sres.cols, sres.vals, q_dims[sl],
+            q_vals[sl], q_dense[sl], q_cols[sl], h=h, alpha=a[0], beta=a[1],
+            adc="cuda")
+
+    # the path, with every count at zero just before it
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    k2 = {s: pass1(s, 500) for s in counts}
+    k1 = {s: pass1(s, 2048) for s in counts}
+    three = {s: search3(s, (alpha, beta)) for s in counts}
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    check(sum(PLAIN_CALLS.values()) == 0, "the sharded path ran plain versions")
+    check(launches["lut16_adc_topk"] == 2 * sum(counts)
+          and launches["lut16_adc"] == sum(counts),
+          f"the sharded path's launches: {launches}")
+    for s in counts[1:]:
+        check(all(torch.equal(a, b) for a, b in zip(k2[s], k2[1])),
+              f"pass 1 at k = 500 (K2): S = {s} != S = 1")
+    for s in counts:
+        check(torch.equal(k1[s][0][:, :500], k2[1][0])
+              and torch.equal(k1[s][1][:, :500], k2[1][1]),
+              f"pass 1 at k = 2048 (K1 + sort), S = {s}: its first 500 != "
+              "K2's")
+    recall = {str(s): recall_at_h(idx.pi[three[s][1].cpu().numpy()],
+                                  true_ids) for s in counts}
+    ms = {str(s): timed_ms(torch, lambda s=s: search3(s, (alpha, beta)))
+          for s in counts}
+    ms_pass1 = {str(s): timed_ms(torch, lambda s=s: pass1(s, 500))
+                for s in counts}
+
+    # every row refined: on 8 queries over a prefix of the rows, the merged
+    # top-h equals the global top-h of the full sum
+    n = arrays.num_points
+    prefix = dist.split_index_arrays(dataclasses.replace(arrays, head=None),
+                                     max(1, n // 16384), ragged=True)[0][0]
+    p_rows, nq = prefix.num_points, 8
+    all_ids = torch.arange(p_rows, device=lut.device)[None].expand(nq, p_rows)
+    total = (adc_scores_ref(prefix.codes, lut[:nq])
+             + score_inverted(prefix.inv_index, q_dims[:nq], q_vals[:nq])
+             + res.dense_residual_scores(prefix.dense_residual, all_ids,
+                                         q_dense[:nq])
+             + res.sparse_residual_scores(prefix.sparse_residual, all_ids,
+                                          q_cols[:nq]))
+    want_s, want_i = stable_topk(total, h)
+    full = {}
+    for s in counts:
+        a = (p_rows // s) // h + 1
+        got_s, got_i = search3(s, (a, a), prefix,
+                               stacked_inverted(torch, dist, prefix, s), nq)
+        err = assert_close(got_s, want_s, f"fully refined three-pass, S = {s}",
+                           rtol=1e-4, atol=1e-4)
+        full[str(s)] = {"max_abs_err": err,
+                        "ids_equal": bool(torch.equal(got_i, want_i))}
+    emit("sharded", shards=list(counts), devices="cuda:0 x S",
+         launches=launches, pass1_k500_bits_equal=True,
+         pass1_k2048_prefix_equal=True, three_pass_recall_at_20=recall,
+         three_pass_ms=ms, pass1_k500_ms=ms_pass1,
+         full_refinement={"rows": p_rows, "queries": nq, "by_shards": full,
+                          "tolerance": {"rtol": 1e-4, "atol": 1e-4}},
+         seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# tables: the paper's Tables 2 and 3 on the card, baselines against hybrid
+# ---------------------------------------------------------------------------
+
+EXACT_BASELINES = ("dense_brute_force", "sparse_brute_force",
+                   "sparse_inverted_index")
+
+
+def table_rows(torch, ds, specs, hybrid_params, alpha, beta, h=20) -> dict:
+    """Each baseline of ``specs`` (name, keyword arguments, queries) and
+    the hybrid index on ``ds``: ms per query (the median of 3 timed calls
+    after one warm-up), recall@h against ``exact_topk`` and the speedup
+    against ``sparse_inverted_index``.  The exact baselines must return
+    ``exact_topk``'s ids, tie-aware."""
+    from repro_torch.core import baselines as bl
+    from repro_torch.core.hybrid import HybridIndex
+
+    qn = ds.q_sparse.shape[0]
+    true_ids, true_s = bl.exact_topk(ds.q_sparse, ds.q_dense, ds.x_sparse,
+                                     ds.x_dense, h, device="cuda")
+    rows = []
+    for name, kw, nq in specs:
+        args = (ds.q_sparse[:nq], ds.q_dense[:nq], ds.x_sparse, ds.x_dense)
+        getattr(bl, name)(*args, h, **kw)                    # warm-up
+        runs = [getattr(bl, name)(*args, h, **kw) for _ in range(3)]
+        r = runs[-1]
+        row = {"name": r.name, "queries": nq,
+               "ms_per_query": statistics.median(x.seconds for x in runs)
+               / nq * 1e3,
+               "recall_at_20": bl.recall_at_h(r.ids, true_ids[:nq]),
+               "build_s": statistics.median(x.build_seconds for x in runs)}
+        if name in EXACT_BASELINES:
+            row["tie_swaps"] = topk_ties(r.ids, r.scores, true_ids[:nq],
+                                         true_s[:nq], r.name)
+        rows.append(row)
+        del runs, r
+        gc.collect()
+    t0 = time.perf_counter()
+    idx = HybridIndex.build(ds.x_sparse, ds.x_dense, hybrid_params,
+                            device="cuda")
+    build_s = time.perf_counter() - t0
+    ms = timed_ms(torch, lambda: idx.search(ds.q_sparse, ds.q_dense, h=h,
+                                            alpha=alpha, beta=beta), runs=3)
+    r = idx.search(ds.q_sparse, ds.q_dense, h=h, alpha=alpha, beta=beta)
+    rows.append({"name": "hybrid_ours", "queries": qn,
+                 "ms_per_query": ms / qn,
+                 "recall_at_20": bl.recall_at_h(r.ids, true_ids),
+                 "build_s": build_s})
+    inv_ms = next(x["ms_per_query"] for x in rows
+                  if x["name"] == "sparse_inverted_index")
+    for x in rows:
+        x["speedup_vs_inverted"] = inv_ms / x["ms_per_query"]
+    return rows
+
+
+def run_tables(args, torch, ds):
+    from repro_torch.core.hybrid import HybridIndexParams
+    from repro_torch.data import make_hybrid_dataset
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import PLAIN_CALLS
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    # Table 3 (benchmarks/table3.py): the slice's QuerySim-shaped data; the
+    # exact inverted index on its first 4 queries, dense brute force left
+    # out (524288 x 200200 f32 is 420 GB)
+    n = ds.x_sparse.shape[0]
+    qn = ds.q_sparse.shape[0]
+    torch.cuda.reset_peak_memory_stats()
+    rows3 = table_rows(torch, ds, (
+        ("sparse_brute_force", {}, qn),
+        ("sparse_inverted_index", {}, 4),
+        ("hamming512", {"overfetch": max(100, n // 1000)}, qn),
+        ("dense_pq_reorder", {"overfetch": max(200, n // 500)}, qn),
+        ("sparse_only", {}, qn),
+        ("sparse_only", {"overfetch": max(400, n // 250)}, qn)),
+        HybridIndexParams(keep_top=192, head_dims=128, kmeans_iters=6,
+                          backend="cuda"), alpha=25, beta=6)
+    emit("table3", rows=n, queries=qn, table=rows3,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         headline="benchmarks/table3.py:4-5: hybrid ~20x faster than the "
+         "exact sparse inverted index at 91% recall@20")
+    tables = {"table3": rows3}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Table 2 (benchmarks/table2.py): Netflix- and Movielens-shaped data at
+    # its widths (d_dense 64, where the paper has 300) and its docstring's
+    # row counts, scaled with --rows
+    for tag, rows, d_sparse, nnz, seed in (("netflix", 500000, 18000, 48, 0),
+                                           ("movielens", 140000, 27000, 32,
+                                            1)):
+        rows = max(1000, rows * args.rows // 524288)
+        t0 = time.perf_counter()
+        ds2 = make_hybrid_dataset(num_points=rows, num_queries=16,
+                                  d_sparse=d_sparse, d_dense=64,
+                                  nnz_per_row=nnz, seed=seed)
+        gen_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        table = table_rows(torch, ds2, (
+            ("dense_brute_force", {}, 16),
+            ("sparse_brute_force", {}, 16),
+            ("sparse_inverted_index", {}, 16),
+            ("hamming512", {"overfetch": max(200, rows // 100)}, 16),
+            ("dense_pq_reorder", {"overfetch": max(400, rows // 50)}, 16),
+            ("sparse_only", {}, 16),
+            ("sparse_only", {"overfetch": max(800, rows // 25)}, 16)),
+            HybridIndexParams(keep_top=128, head_dims=64, kmeans_iters=6,
+                              backend="cuda"), alpha=20, beta=5)
+        emit(f"table2_{tag}", rows=rows, queries=16, d_sparse=d_sparse,
+             d_dense=64, nnz_per_row=nnz, seed=seed, generate_s=gen_s,
+             table=table,
+             max_memory_allocated=torch.cuda.max_memory_allocated())
+        tables[f"table2_{tag}"] = table
+        del ds2
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    check(sum(PLAIN_CALLS.values()) == 0, "the tables ran plain versions")
+    check(launches["lut16_adc"] >= 1 and launches["lut16_adc_topk"] >= 1
+          and launches["block_sparse_matmul"] >= 1,
+          f"the tables did not launch K1, K2 and K3: {launches}")
+    emit("tables", launches=launches, seconds=time.perf_counter() - t_phase)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1745,10 +2028,12 @@ def main() -> int:
              for name, log in info["ptxas"].items()}
     emit("build", seconds=info["seconds"], built=info["built"], ptxas=ptxas)
 
-    idx, ds, queries, launches, c1, res, profiles = run_slice(args, torch)
+    (idx, ds, queries, launches, c1, res, profiles,
+     true_ids) = run_slice(args, torch)
     rows = run_kernels(torch, idx, queries, launches, c1)
     rows[1]["profile_split"] = k2_profile_split(profiles)
     rows.append(run_value_forward(torch, idx, queries))
+    sharded = run_sharded(torch, idx, queries, true_ids)
     params = idx.params
     # the service retires idx's generation at its refresh: idx goes after
     service = run_service(args, torch, idx, ds, res)
@@ -1763,12 +2048,17 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     durable = run_durable(torch, ds, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tables = run_tables(args, torch, ds)
     del ds
     gc.collect()
     torch.cuda.empty_cache()
     for r in rows:
         r["service_launches"] = {"service": service[r["name"]],
                                  "durable": durable[r["name"]]}
+        r["tables_launches"] = tables[r["name"]]
+        r["sharded_launches"] = sharded[r["name"]]
     run_launch()
     run_reference_store(torch)
     emit("total", seconds=time.perf_counter() - t_start)

@@ -1,7 +1,8 @@
-"""Cache sorting (paper Algorithm 1).
+"""Cache sorting (paper Algorithm 1) and the cache-line cost model (Eq. 4 /
+Eq. 5).
 
-Numpy copy of ``repro.core.cache_sort`` (Algorithm 1 only; the cost model
-stays in the JAX package).  The paper's observation: accumulator memory is
+Numpy copy of ``repro.core.cache_sort``: the same inputs give the same
+permutation and the same costs.  The paper's observation: accumulator memory is
 moved in fixed-size blocks of B slots (64-byte cache-lines on x86; the
 128-row head tiles of the block-sparse kernel here).
 For every (dimension j, row-block b) pair, the block must be touched iff any of
@@ -20,7 +21,15 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 
-__all__ = ["cache_sort", "dimension_activity"]
+__all__ = [
+    "cache_sort",
+    "dimension_activity",
+    "expected_cost_unsorted",
+    "expected_cost_sorted_bound",
+    "measured_block_cost",
+    "block_occupancy",
+    "power_law_probs",
+]
 
 
 def _as_csc(x) -> sp.csc_matrix:
@@ -87,3 +96,66 @@ def cache_sort(x_sparse, max_dims: int | None = None, min_segment: int = 2) -> n
         stack.append((start, pivot, j + 1))
         stack.append((pivot, end, j + 1))
     return pi
+
+
+# ---------------------------------------------------------------------------
+# Cost model (paper §3.1 and §3.3)
+# ---------------------------------------------------------------------------
+
+def expected_cost_unsorted(p: np.ndarray, q: np.ndarray, n: int, b: int) -> float:
+    """Eq. 4: E[C_unsort] = sum_j Q_j (1 - (1 - P_j)^B) N/B."""
+    p = np.asarray(p, dtype=np.float64)
+    q = np.asarray(q, dtype=np.float64)
+    return float(np.sum(q * (1.0 - (1.0 - p) ** b) * (n / b)))
+
+
+def expected_cost_sorted_bound(p: np.ndarray, q: np.ndarray, n: int, b: int) -> float:
+    """Eq. 5 upper bound on E[C_sort].
+
+    After cache sorting, dimension j (1-indexed by activity rank) is split into
+    at most 2^j contiguous blocks of nonzeros, each occupying ceil(P_j N / (2^j B))
+    cache lines (worst case: no two runs share a line).  Once 2^j exceeds the
+    number of nonzero lines, sorting gives no structure and the unsorted
+    expectation applies.
+    """
+    p = np.asarray(p, dtype=np.float64)
+    q = np.asarray(q, dtype=np.float64)
+    d = len(p)
+    j = np.arange(1, d + 1, dtype=np.float64)
+    two_j = np.minimum(2.0 ** np.minimum(j, 62), 2.0 ** 62)
+    sorted_term = two_j * np.ceil(p * n / (two_j * b))
+    unsorted_term = (1.0 - (1.0 - p) ** b) * (n / b)
+    cost = np.where(p * n / b >= two_j, sorted_term, unsorted_term)
+    return float(np.sum(q * np.minimum(cost, unsorted_term)))
+
+
+def block_occupancy(x_sparse, b: int, pi: np.ndarray | None = None) -> np.ndarray:
+    """(ceil(N/B), d) boolean: block i touches dimension j.
+
+    The tile occupancy the block-sparse head kernel skips on (DESIGN.md §2)
+    and the exact counter behind ``measured_block_cost``.
+    """
+    xc = _as_csc(x_sparse).tocoo()
+    n, d = xc.shape
+    rows = xc.row if pi is None else np.argsort(pi)[xc.row]
+    nblocks = -(-n // b)
+    occ = np.zeros((nblocks, d), dtype=bool)
+    occ[rows // b, xc.col] = True
+    return occ
+
+
+def measured_block_cost(x_sparse, b: int, query_dims: np.ndarray,
+                        pi: np.ndarray | None = None) -> int:
+    """Exact number of (dimension, block) touches for one query's active dims.
+
+    This is the paper's Cost(X^S) counter — the quantity cache sorting minimizes —
+    measured on the actual layout rather than the i.i.d. model.
+    """
+    occ = block_occupancy(x_sparse, b, pi)
+    return int(occ[:, np.asarray(query_dims)].sum())
+
+
+def power_law_probs(d: int, alpha: float) -> np.ndarray:
+    """P_j ∝ j^-alpha (paper §3.3), un-normalized as in Fig. 4 (P_1 = 1)."""
+    j = np.arange(1, d + 1, dtype=np.float64)
+    return np.minimum(1.0, j ** (-alpha))

@@ -31,6 +31,7 @@ import scipy.sparse as sp
 import torch
 
 from ..device import resolve_device
+from . import baselines
 from .cache_sort import cache_sort, dimension_activity
 from .engine import Backend, IndexArrays, ScoringEngine
 from .pq import (PQCodebooks, ScalarQuant, pq_decode, pq_encode,
@@ -299,6 +300,13 @@ class HybridIndex:
         return SearchResult(
             ids=orig, scores=s3.cpu().numpy(),
             pass1_ids=self.pi[ids1.cpu().numpy()] if return_pass1 else None)
+
+    def exact_scores(self, q_sparse: sp.spmatrix, q_dense: np.ndarray,
+                     x_sparse: sp.spmatrix, x_dense: np.ndarray) -> np.ndarray:
+        """Brute-force q·x for validation (original row order), computed on
+        the index's device.  (Q, N) numpy."""
+        return baselines.exact_scores(q_sparse, q_dense, x_sparse, x_dense,
+                            device=self.device).cpu().numpy()
 
 
 def _remap(x: sp.spmatrix, cols: CompactColumns) -> sp.csr_matrix:

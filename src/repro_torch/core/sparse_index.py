@@ -278,16 +278,18 @@ def build_padded_rows(x_compact: sp.csr_matrix, r_max: int | None = None, *,
         r_max = max(int(lens.max(initial=1)), 1)
     cols = np.full((n, r_max), d, dtype=np.int32)
     vals = np.zeros((n, r_max), dtype=np.float32)
-    for i in range(n):
+    # rows that fit keep their entries in CSR order, all at once; a longer
+    # row keeps its r_max largest |values|
+    row_of = np.repeat(np.arange(n), lens)
+    slot = np.arange(xr.nnz) - np.repeat(xr.indptr[:-1], lens)
+    fits = (lens <= r_max)[row_of]
+    cols[row_of[fits], slot[fits]] = xr.indices[fits]
+    vals[row_of[fits], slot[fits]] = xr.data[fits]
+    for i in np.flatnonzero(lens > r_max):
         lo, hi = xr.indptr[i], xr.indptr[i + 1]
-        m = min(hi - lo, r_max)
-        if m < hi - lo:
-            order = np.argsort(-np.abs(xr.data[lo:hi]))[:m]
-            cols[i, :m] = xr.indices[lo:hi][order]
-            vals[i, :m] = xr.data[lo:hi][order]
-        else:
-            cols[i, :m] = xr.indices[lo:hi]
-            vals[i, :m] = xr.data[lo:hi]
+        order = np.argsort(-np.abs(xr.data[lo:hi]))[:r_max]
+        cols[i] = xr.indices[lo:hi][order]
+        vals[i] = xr.data[lo:hi][order]
     return PaddedSparseRows(cols=torch.from_numpy(cols).to(device),
                             vals=torch.from_numpy(vals).to(device))
 

@@ -40,7 +40,8 @@ def test_package_imports_without_jax():
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
             "import repro_torch, repro_torch.interchange, "
-            "repro_torch.core.baselines, repro_torch.kernels.ops, "
+            "repro_torch.core, repro_torch.core.baselines, "
+            "repro_torch.core.distributed, repro_torch.kernels.ops, "
             "repro_torch.data, repro_torch.serve, repro_torch.persist, "
             "repro_torch.obs, repro_torch.checkpoint, "
             "repro_torch.launch.serve\n"
