@@ -12,11 +12,18 @@ compaction (phase ``mutable``) — and the serving tier: ``QueryService``
 over the slice's index under a ragged request stream, with the shard
 fan-out, a refresh under load and per-pass times (phase ``service``), a
 durable service with its snapshot store and WAL, recovered bit for bit
-(phase ``durable``), ``python -m repro_torch.launch.serve --retrieval``
-plain, durable and restored (phase ``launch``), and the store the JAX
+(phase ``durable``), the cluster tier — a ``LocalCluster`` of a primary,
+two scorers and a replica, each a process of its own on the card, driven
+through ``ClusterRouter`` and held bit for bit to in-process fan-outs
+through a ragged stream, mutations, two compactions, healed frame faults,
+a scorer kill and a failover, and to exact search by recall (phase
+``cluster``) — ``python -m
+repro_torch.launch.serve --retrieval`` plain, durable and restored, and
+``--role router`` (phase ``launch``), and the store the JAX
 package wrote (``tests/data/reference_store``) recovered on the card and
 held to the reference's results (phase ``reference_store``).  It holds
-every kernel against its plain PyTorch version on the card (phases
+every kernel against its plain PyTorch version on the card, at the
+slice's shapes and at those the cluster's nodes give it (phases
 ``kernels_checked`` and ``value_forward``, the latter also driving
 ``score_inverted_vf``).  Each phase prints one JSON line; any failed check
 raises, and the script exits non-zero.  The last line is ``{"ok": true,
@@ -630,6 +637,80 @@ def kernel_row(name, source, replaces, launches, m, nbytes, nops,
             "library_ms": m["library_ms"]}
 
 
+def cluster_kernel_shapes(torch, ops, ref, arrays, queries, c1) -> dict:
+    """K1, K2 and K3 at the shapes the ``cluster`` phase's nodes give them,
+    each against its plain version on the same inputs:
+
+    * a scorer's ragged row slice (``split_index_arrays(..., 2,
+      ragged=True)``) and the full index (the replica's ``full`` part, the
+      primary's direct reads) at the router's buckets Q = 1, 8, 32: K1 bit
+      for bit; K2 at k = c1 and at the fused route's largest k, scores and
+      ids bit for bit and equal across two launches; K3 within rtol / atol
+      (3xTF32: not the plain version's bits) and equal across two launches;
+    * the primary's delta: k == N == capacity with a row mask, K2 up to
+      1024 slots and K1 + stable sort above, bit for bit, and K1 itself."""
+    from repro_torch.core.distributed import split_index_arrays
+    from repro_torch.core.engine import pass1_bias, scatter_head_queries
+    from repro_torch.core.pq import adc_lut
+    q_dims, q_vals, q_dense = queries
+    parts, _ = split_index_arrays(arrays, 2, ragged=True)
+    ks = (c1, ops.MAX_FUSED_CANDIDATES)
+    out = {"buckets": [1, 8, 32], "k2_k": list(ks), "parts": {}}
+    for name, a in (("scorer-0", parts[0]), ("scorer-1", parts[1]),
+                    ("full", arrays)):
+        n, errs = a.num_points, {}
+        for qn in (1, 8, 32):
+            qd, qv = q_dims[:qn], q_vals[:qn]
+            lut = adc_lut(q_dense[:qn], a.codebooks)
+            bias = pass1_bias(a, qd, qv)
+            where = f"{name}, N = {n}, Q = {qn}"
+            check(torch.equal(ops.lut16_adc(a.codes, lut),
+                              ref.lut16_adc_plain(a.codes, lut)),
+                  f"K1 != plain at {where}")
+            for k in ks:
+                got = ops.lut16_adc_topk(a.codes, lut, k, bias=bias)
+                want = ops._normalize(*ref.lut16_adc_topk_plain(
+                    a.codes, lut, bias, k))
+                check(all(torch.equal(x, y) for x, y in zip(got, want)),
+                      f"K2 != plain at {where}, k = {k}")
+                check(all(torch.equal(x, y) for x, y in zip(
+                    got, ops.lut16_adc_topk(a.codes, lut, k, bias=bias))),
+                      f"K2 at {where}, k = {k}: two launches differ")
+            q_head = scatter_head_queries(qd, qv, a.head_pos,
+                                          a.head.block.shape[1])
+            bcsr = (a.head_tiles, a.head_ptr, a.head_col)
+            got = ops.block_sparse_matmul_bcsr(q_head, *bcsr)
+            check(torch.equal(got, ops.block_sparse_matmul_bcsr(q_head,
+                                                                *bcsr)),
+                  f"K3 at {where}: two launches differ")
+            errs[str(qn)] = assert_close(
+                got, ref.block_sparse_plain(q_head, *bcsr), f"K3 at {where}")
+        out["parts"][name] = {"N": n, "k3_max_abs_err": errs}
+    # the delta: main rows' codes at its capacities, a quarter of the
+    # slots masked (free or tombstoned), k == N as the delta engine asks
+    lut32 = adc_lut(q_dense[:32], arrays.codebooks)
+    bias32 = pass1_bias(arrays, q_dims[:32], q_vals[:32])
+    out["delta_capacities"] = []
+    for cap in (1024, 2048, 4096):
+        codes = arrays.codes[:cap]
+        mask = torch.zeros(cap, device=codes.device)
+        mask[torch.arange(cap, device=codes.device) % 4 == 3] = -np.inf
+        for qn in (1, 8, 32):
+            lut, bias = lut32[:qn], bias32[:qn, :cap].contiguous()
+            where = f"the delta, k == N == {cap}, Q = {qn}"
+            got = ops.lut16_adc_topk(codes, lut, cap, bias=bias,
+                                     row_mask=mask)
+            want = ops._normalize(*ref.lut16_adc_topk_plain(
+                codes, lut, bias + mask[None], cap))
+            check(all(torch.equal(x, y) for x, y in zip(got, want)),
+                  f"{where}: pass 1 != plain")
+            check(torch.equal(ops.lut16_adc(codes, lut),
+                              ref.lut16_adc_plain(codes, lut)),
+                  f"{where}: K1 != plain")
+        out["delta_capacities"].append(cap)
+    return out
+
+
 def run_kernels(torch, idx, queries, launches, c1):
     from repro_torch.core.engine import pass1_bias, scatter_head_queries
     from repro_torch.core.pq import adc_lut
@@ -810,6 +891,8 @@ def run_kernels(torch, idx, queries, launches, c1):
     edge_k1 = edge_cases_k1(torch, ops, ref)
     edge_k2 = edge_cases_k2_threshold(torch, ops, ref)
     edge_bs = edge_cases_block_sparse(torch, ops, ref)
+    cluster_shapes = cluster_kernel_shapes(torch, ops, ref, arrays, queries,
+                                           c1)
 
     rows = [
         kernel_row("lut16_adc", "src/repro_torch/csrc/lut16.cu",
@@ -843,7 +926,7 @@ def run_kernels(torch, idx, queries, launches, c1):
          edge_cases_lut16=edge_lut, edge_cases_k1=edge_k1,
          edge_cases_k2_threshold=edge_k2,
          edge_cases_block_sparse=len(edge_bs),
-         block_sparse_cases=edge_bs,
+         block_sparse_cases=edge_bs, cluster_shapes=cluster_shapes,
          tolerance={"rtol": RTOL, "atol": ATOL})
     return rows
 
@@ -1276,13 +1359,13 @@ def perturbed_rows(ds, m: int, seed: int, dense_weight: float = 2.0):
     return xs, xd
 
 
-def live_recall(torch, midx, ds, res, h) -> float:
-    """recall@h of a mutable search against exact search over the live
-    corpus (``MutableState.survivors()``), in external ids."""
+def live_recall(torch, midx, ds, got_ids, h) -> float:
+    """recall@h of external ids found for every query of ``ds`` against
+    exact search over the live corpus (``MutableState.survivors()``)."""
     from repro_torch.core.baselines import exact_topk, recall_at_h
     xs, xd, ids = midx.mutable_state.survivors()
     pos, _ = exact_topk(ds.q_sparse, ds.q_dense, xs, xd, h, device="cuda")
-    return recall_at_h(res.ids, ids[pos])
+    return recall_at_h(got_ids, ids[pos])
 
 
 def timed_searches(torch, midx, ds, h, alpha, beta) -> dict:
@@ -1446,7 +1529,7 @@ def run_mutable(args, torch, ds, params, immutable_res):
     c1_main = alpha * (h + ceil16(16))
     check(launches5["lut16_adc"] == 1 and launches5["lut16_adc_topk"] == 1,
           f"delta K1 + main K2 (c1 {c1_main}) expected: {launches5}")
-    recall5 = live_recall(torch, midx, ds, res5, h)
+    recall5 = live_recall(torch, midx, ds, res5.ids, h)
     check(recall5 >= 0.95, f"recall@{h} after the mutations {recall5} < 0.95")
     steps["after_deletes"] = {
         "main_c1": c1_main, "launches": launches5, "recall_at_20": recall5,
@@ -1461,7 +1544,7 @@ def run_mutable(args, torch, ds, params, immutable_res):
           f"delta K1 + main K1 (c1 {c1_main}) expected: {launches6}")
     steps["after_more_deletes"] = {
         "main_c1": c1_main, "launches": launches6,
-        "recall_at_20": live_recall(torch, midx, ds, res6, h),
+        "recall_at_20": live_recall(torch, midx, ds, res6.ids, h),
         "search_latency": timed_searches(torch, midx, ds, h, alpha, beta)}
 
     # 7. snapshot isolation at the end of the inserts (this insert grows)
@@ -1475,7 +1558,7 @@ def run_mutable(args, torch, ds, params, immutable_res):
     torch.cuda.synchronize()
     merge_s = time.perf_counter() - t0
     res8, _ = counted_search(torch, merged, ds, h, alpha, beta)
-    recall8 = live_recall(torch, merged, ds, res8, h)
+    recall8 = live_recall(torch, merged, ds, res8.ids, h)
     check(recall8 >= 0.95, f"recall@{h} after merge compaction {recall8}")
     steps["merge_compact"] = {
         "seconds": merge_s, "rows": merged.num_points,
@@ -1882,6 +1965,489 @@ def run_durable(torch, ds, params):
 
 
 # ---------------------------------------------------------------------------
+# cluster: a LocalCluster on the card (primary, 2 scorers, 1 replica, each a
+# process of its own) driven through ClusterRouter, every result held to an
+# in-process fan-out of the port bit for bit
+# ---------------------------------------------------------------------------
+
+# inserts of the cluster phase: past 1024 delta slots, so that the
+# primary's delta engine goes from K2 to K1 + sort
+CLUSTER_INSERTS = 2048
+CLUSTER_DELETES = 256
+
+
+class InProcessCluster:
+    """The router's two read paths, computed in this process on the same
+    state as the cluster (every mutation is applied here too):
+
+    * ``fan`` — the scorer fan-out: the main generation split by
+      ``split_index_arrays(..., ragged=True)`` into the scorers' row
+      slices, each fetching ``plan_overfetch``'s depth, plus the delta at
+      its capacity, merged by ``core.streaming.fanout_search`` (what
+      ``QueryService(num_shards=S)`` runs);
+    * ``one`` — the one-engine read that the primary's direct path and a
+      replica's ``full`` part serve: the main engine at the router's depth
+      (h + ceil16 of the main and fully deleted ids) plus the server's
+      self-slack (ceil16 of its tombstones), the delta, and the per-part
+      drops of ``merge_topk_host``.  At c1 = alpha * depth the depth
+      changes the candidates, so it must be the router's, not a
+      ``QueryService``'s.
+
+    Queries are padded to the router's bucket, since scores depend in
+    their last bits on the batch."""
+
+    def __init__(self, torch, idx, num_scorers, h, alpha, beta):
+        self.torch, self.idx, self.s = torch, idx, num_scorers
+        self.h, self.alpha, self.beta = h, alpha, beta
+        self._split = None
+
+    def _engines(self):
+        from repro_torch.core.distributed import split_index_arrays
+        from repro_torch.core.engine import ScoringEngine
+        arrays = self.idx.engine.arrays
+        if self._split is None or self._split[0] is not arrays:
+            parts, offsets = split_index_arrays(arrays, self.s, ragged=True)
+            self._split = (arrays, [ScoringEngine(
+                arrays=a, backend=self.idx.engine.backend) for a in parts],
+                offsets)
+        return self._split[1], self._split[2]
+
+    def _queries(self, q_sparse, q_dense):
+        from repro_torch.core.sparse_index import sparse_queries_to_padded
+        from repro_torch.serve.query_service import (DEFAULT_BUCKETS,
+                                                     bucket_for, pad_rows)
+        qd, qv = sparse_queries_to_padded(q_sparse, self.idx.cols,
+                                          nq_max=self.idx.params.nq_max)
+        qn = qd.shape[0]
+        b = bucket_for(qn, DEFAULT_BUCKETS)
+        dev = self.idx.device
+        fill = self.idx.engine.arrays.d_active
+        return ([self.torch.from_numpy(a).to(dev) for a in (
+            pad_rows(qd, b, fill=fill), pad_rows(qv, b),
+            pad_rows(np.asarray(q_dense, np.float32), b))], qn)
+
+    def _delta(self):
+        from repro_torch.core.engine import ScoringEngine
+        st = self.idx.mutable_state
+        if not st.delta.live_count:
+            return None, None
+        snap = st.delta.snapshot()
+        return ScoringEngine(arrays=snap.arrays,
+                             backend=self.idx.engine.backend), snap
+
+    def fan(self, q_sparse, q_dense):
+        from repro_torch.core.streaming import fanout_search, plan_overfetch
+        q, qn = self._queries(q_sparse, q_dense)
+        engines, offsets = self._engines()
+        st = self.idx.mutable_state
+        de, snap = self._delta()
+        return fanout_search(
+            engines, plan_overfetch(engines, self.h, st.main_tombstones),
+            offsets, st.id_map, de, None if snap is None else snap.ids,
+            st.main_tombstones, *q, h=self.h, alpha=self.alpha,
+            beta=self.beta, qn=qn, dedup_upserts=True)
+
+    def one(self, q_sparse, q_dense):
+        from repro_torch.core.distributed import ceil16, merge_topk_host
+        from repro_torch.device import to_numpy
+        q, qn = self._queries(q_sparse, q_dense)
+        st = self.idx.mutable_state
+        main_dead = set(st.main_tombstones)
+        fully = (main_dead | set(st.extra_ids)) - st._loc.keys()
+        n = self.idx.engine.arrays.num_points
+        dead = main_dead | fully
+        h_fetch = min(self.h + (ceil16(len(dead)) if dead else 0), n)
+        h_eff = min(h_fetch + (ceil16(len(main_dead)) if main_dead else 0),
+                    n)
+        kw = dict(alpha=self.alpha, beta=self.beta)
+        ms, mi, _ = self.idx.engine.search(*q, h=h_eff, **kw)
+        parts = [(to_numpy(ms)[:qn],
+                  np.asarray(st.id_map)[to_numpy(mi)][:qn],
+                  np.asarray(sorted(dead), np.int64))]
+        de, snap = self._delta()
+        if de is not None:
+            ds_, di, _ = de.search(*q, h=snap.capacity, **kw)
+            parts.append((to_numpy(ds_)[:qn], snap.ids[to_numpy(di)][:qn],
+                          np.asarray(sorted(fully), np.int64)))
+        return merge_topk_host(parts, self.h)
+
+    def path(self, rows: int):
+        """The comparator of the path the router takes for ``rows`` rows
+        (``direct_q_max`` = 1)."""
+        return self.one if rows == 1 else self.fan
+
+
+def node_stats(cluster) -> dict:
+    """The ``stats`` reply of every live node, by node name."""
+    from repro_torch.serve.cluster import ShardClient
+    out = {}
+    for hnd in [cluster.primary, *cluster.scorers, *cluster.replicas]:
+        if not hnd.alive():
+            continue
+        c = ShardClient("127.0.0.1", hnd.port, timeout=120)
+        try:
+            st, _ = c.call("stats")
+        finally:
+            c.close()
+        st.pop("metrics")
+        out[hnd.name] = st
+    return out
+
+
+def wait_replica(cluster, seq: int, timeout: float = 120.0) -> dict:
+    from repro_torch.serve.cluster import ShardClient
+    c = ShardClient("127.0.0.1", cluster.replicas[0].port, timeout=timeout)
+    deadline = time.monotonic() + timeout
+    try:
+        while True:
+            st, _ = c.call("status")
+            if st["applied_seq"] >= seq:
+                return st
+            check(time.monotonic() < deadline,
+                  f"replica stuck at applied seq {st['applied_seq']}, "
+                  f"want {seq}")
+            time.sleep(0.05)
+    finally:
+        c.close()
+
+
+def run_cluster(torch, ds, params):
+    import shutil
+    import tempfile
+
+    from repro_torch.core.hybrid import HybridIndex
+    from repro_torch.core.sparse_index import sparse_queries_to_padded
+    from repro_torch.serve.cluster import (DegradedResultError, LocalCluster,
+                                           ShardClient)
+
+    t_phase = time.perf_counter()
+    h, alpha, beta, scorers = 20, 25, 6, 2
+    tmp = tempfile.mkdtemp(prefix="cluster-")
+    disk_free = shutil.disk_usage(tmp).free
+    rng = np.random.default_rng(7)
+    nq = ds.q_dense.shape[0]
+    requests = [rng.integers(0, nq, int(q)) for q in rng.integers(1, 33, 64)]
+    rows32 = np.arange(32)
+    parity_checks = {"fan": 0, "one": 0}
+    cluster = None
+    routers = []
+    try:
+        t0 = time.perf_counter()
+        idx = HybridIndex.build(ds.x_sparse, ds.x_dense, params,
+                                mutable=True, device="cuda")
+        build_s = time.perf_counter() - t0
+        comp = InProcessCluster(torch, idx, scorers, h, alpha, beta)
+        t0 = time.perf_counter()
+        cluster = LocalCluster.launch(idx, tmp, num_scorers=scorers,
+                                      num_replicas=1, device="cuda:0")
+        launch_s = time.perf_counter() - t0
+        boot = node_stats(cluster)
+        # a scorer's share: the bytes of the slice split_index_arrays
+        # gives it (every tensor of it owned), per generation it holds
+        slice_bytes = {1: [tensor_bytes(e.arrays)
+                           for e in comp._engines()[0]]}
+        for name, st in boot.items():
+            check(st["kernels_built"] == [],
+                  f"node {name} compiled kernels: {st['kernels_built']}")
+        router = cluster.router(h=h, alpha=alpha, beta=beta, timeout=600)
+        routers.append(router)
+
+        def same(got, want, what):
+            check(np.array_equal(got[1], want[1])
+                  and np.array_equal(got[0], want[0]),
+                  f"{what}: the router's ids/scores != the in-process "
+                  "path's, bit for bit")
+
+        def parity(r, what):
+            for rows in (rows32, rows32[5:6]):
+                got = r.search_sparse(ds.q_sparse[rows], ds.q_dense[rows])
+                same(got, comp.path(len(rows))(ds.q_sparse[rows],
+                                               ds.q_dense[rows]), what)
+                parity_checks["one" if len(rows) == 1 else "fan"] += 1
+
+        def router_recall(what):
+            """recall@h of the router's results for every query against
+            exact search over the live rows, an answer independent of
+            the depths the router and its comparators share."""
+            got = np.concatenate([router.search_sparse(
+                ds.q_sparse[lo:lo + 32], ds.q_dense[lo:lo + 32])[1]
+                for lo in range(0, nq, 32)])
+            r = live_recall(torch, comp.idx, ds, got, h)
+            check(r >= 0.95, f"router recall@{h} {what} {r} < 0.95")
+            return r
+
+        # fan against one on the 128 queries: where 2 x c1 candidates
+        # refined by the slices differ from one engine's c1
+        fan_one = {"ids_differing": 0, "rows_differing": 0}
+        for lo in range(0, nq, 32):
+            f = comp.fan(ds.q_sparse[lo:lo + 32], ds.q_dense[lo:lo + 32])
+            o = comp.one(ds.q_sparse[lo:lo + 32], ds.q_dense[lo:lo + 32])
+            fan_one["ids_differing"] += int((f[1] != o[1]).sum())
+            fan_one["rows_differing"] += int((f[1] != o[1]).any(axis=1).sum())
+
+        # the ragged stream, twice (the router has no result cache)
+        want = [comp.path(len(r))(ds.q_sparse[r], ds.q_dense[r])
+                for r in requests]
+        passes = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            got = [router.search_sparse(ds.q_sparse[r], ds.q_dense[r])
+                   for r in requests]
+            passes.append(time.perf_counter() - t0)
+            for r, g, w in zip(requests, got, want):
+                same(g, w, f"ragged stream, a request of {len(r)} rows")
+        stream_rows = sum(len(r) for r in requests)
+        check(router.stats["direct_reads"] > 0
+              and router.stats["primary_reads"] > router.stats[
+                  "direct_reads"], "the stream took only one path")
+
+        # four CUDA contexts on one card: one scorer searched alone, then
+        # both at once (score_s is each server's own wall time of a search)
+        pin = router._pin()
+        qd, qv = sparse_queries_to_padded(ds.q_sparse[rows32], pin.cols,
+                                          nq_max=router._nq_max)
+        req = {"part": "main", "gen": pin.gen, "h": h, "alpha": alpha,
+               "beta": beta}
+        q_arrays = {"q_dims": qd, "q_vals": qv,       # 32 rows: no padding
+                    "q_dense": np.asarray(ds.q_dense[rows32], np.float32)}
+        clients = [ShardClient("127.0.0.1", hd.port, timeout=120)
+                   for hd in cluster.scorers]
+        try:
+            alone, both, both_wall = [], [], []
+            for _ in range(12):
+                m, _ = clients[0].call("search", req, q_arrays)
+                alone.append(m["score_s"])
+            for _ in range(12):
+                t0 = time.perf_counter()
+                ps = [c.submit("search", req, q_arrays) for c in clients]
+                ms_ = [p.result()[0] for p in ps]
+                both_wall.append(time.perf_counter() - t0)
+                both += [m["score_s"] for m in ms_]
+        finally:
+            for c in clients:
+                c.close()
+        contexts = {"scorer_rows": 32,
+                    "scorer_alone_score_ms_p50": percentile_ms(alone, 50),
+                    "scorers_together_score_ms_p50": percentile_ms(both, 50),
+                    "scorers_together_wall_ms_p50": percentile_ms(both_wall,
+                                                                  50)}
+
+        # mutations through the router, mirrored in-process
+        xs_new, xd_new = perturbed_rows(ds, CLUSTER_INSERTS, seed=11)
+        ack_s, new_ids = [], []
+        for lo in range(0, CLUSTER_INSERTS, 16):
+            t0 = time.perf_counter()
+            got = router.insert(xs_new[lo:lo + 16], xd_new[lo:lo + 16])
+            ack_s.append(time.perf_counter() - t0)
+            check(np.array_equal(got, idx.insert(xs_new[lo:lo + 16],
+                                                 xd_new[lo:lo + 16])),
+                  "the router's assigned ids != the in-process index's")
+            new_ids += got.tolist()
+            if (lo + 16) % 512 == 0:
+                parity(router, f"after {lo + 16} inserts")
+        drng = np.random.default_rng(12)
+        doomed = np.concatenate([
+            drng.choice(ds.x_sparse.shape[0], CLUSTER_DELETES // 2,
+                        replace=False),
+            drng.choice(new_ids, CLUSTER_DELETES // 2, replace=False)])
+        for lo in range(0, CLUSTER_DELETES, 16):
+            batch = doomed[lo:lo + 16].tolist()
+            check(router.delete(batch) == idx.delete(batch) == 16,
+                  "a delete batch did not kill 16 rows in both")
+        parity(router, "after the deletes")
+        recall = {"after_deletes": router_recall("after the deletes")}
+        delta_slots = idx.mutable_state.delta.capacity
+
+        def compact(want_gen):
+            """Compact through the router (until every follower serves the
+            new generation) and in-process; parity and recall after."""
+            t0 = time.perf_counter()
+            gen = router.compact()
+            compact_s.append(time.perf_counter() - t0)
+            comp.idx = comp.idx.compact()
+            check(gen == want_gen, f"compaction went to generation {gen}")
+            parity(router, f"after compaction to generation {gen}")
+            recall[f"after_compaction_{gen}"] = router_recall(
+                f"after compaction to generation {gen}")
+            slice_bytes[gen] = [tensor_bytes(e.arrays)
+                                for e in comp._engines()[0]]
+
+        def mutate(seed):
+            """64 inserts and 6 deletes (2 of the new rows, 4 of main)
+            through the router and in-process, then parity: a delta and
+            tombstones for the reads that follow."""
+            xs_more, xd_more = perturbed_rows(ds, 64, seed=seed)
+            for lo in range(0, 64, 16):
+                got = router.insert(xs_more[lo:lo + 16], xd_more[lo:lo + 16])
+                check(np.array_equal(got, comp.idx.insert(
+                    xs_more[lo:lo + 16], xd_more[lo:lo + 16])),
+                      "the router's assigned ids != the in-process index's")
+            live_main = np.setdiff1d(np.arange(ds.x_sparse.shape[0]),
+                                     np.fromiter(deleted, np.int64))
+            batch = [int(got[0]), int(got[5])] + drng.choice(
+                live_main, 4, replace=False).tolist()
+            check(router.delete(batch) == comp.idx.delete(batch)
+                  == len(batch), "the post-compaction deletes")
+            deleted.update(batch)
+            parity(router, f"after the mutations of seed {seed}")
+
+        # two compactions, mutations before each and after the last: the
+        # second one drops generation 1 from every scorer
+        compact_s = []
+        deleted = set(doomed.tolist())
+        compact(2)
+        mutate(13)
+        readings = {"bootstrap": boot, "compacted_once": node_stats(cluster)}
+        compact(3)
+        mutate(14)
+        idx = comp.idx
+
+        # a second router on the same cluster agrees with the first
+        r2 = cluster.router(h=h, alpha=alpha, beta=beta, timeout=600)
+        routers.append(r2)
+        for r in requests[:16]:
+            a = router.search_sparse(ds.q_sparse[r], ds.q_dense[r])
+            b = r2.search_sparse(ds.q_sparse[r], ds.q_dense[r])
+            same(b, a, "two routers")
+        parity(r2, "the second router")
+
+        # every node's counts, bytes and timings before the faults
+        stats = readings["compacted_twice"] = node_stats(cluster)
+        mem = {}
+        for name, st in stats.items():
+            check(st["kernels_built"] == [],
+                  f"node {name} compiled kernels: {st['kernels_built']}")
+            check(sum(st["plain_calls"].values()) == 0,
+                  f"node {name} ran plain versions: {st['plain_calls']}")
+            if name.startswith("scorer"):
+                # its bytes above the process's baseline (the cuBLAS
+                # workspace of its device thread, taken before any index)
+                k = int(name.split("-")[1])
+                for when, gens in (("bootstrap", [1]),
+                                   ("compacted_once", [1, 2]),
+                                   ("compacted_twice", [2, 3])):
+                    s_ = readings[when][name]
+                    check(s_["generations"] == gens,
+                          f"{name} holds generations {s_['generations']} "
+                          f"at {when}, not {gens}")
+                    held = s_["memory_allocated"] - s_["baseline_allocated"]
+                    bound = 1.25 * sum(slice_bytes[g][k] for g in gens)
+                    check(held <= bound,
+                          f"{name} holds {held} B above its baseline at "
+                          f"{when}, beyond 1.25 x its slices of "
+                          f"generations {gens} ({bound:.0f})")
+            mem[name] = {"baseline": st["baseline_allocated"],
+                         **{when: {"now": r_[name]["memory_allocated"],
+                                   "max": r_[name]["max_memory_allocated"],
+                                   "generations": r_[name]["generations"]}
+                            for when, r_ in readings.items()}}
+        # what one search adds to a scorer's bytes at its slice's shapes:
+        # the same search in this process, at the stream's 32 rows, at
+        # depth h (K2), at the depth the 128 main deletes gave the scorers
+        # (K1 + sort) and at the depth of all 256 deletes
+        q, _ = comp._queries(ds.q_sparse[rows32], ds.q_dense[rows32])
+        eng = comp._engines()[0][0]
+        transient = {}
+        for depth in (h, h + CLUSTER_DELETES // 2, h + CLUSTER_DELETES):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            eng.search(*q, h=depth, alpha=alpha, beta=beta)
+            torch.cuda.synchronize()
+            transient[str(depth)] = torch.cuda.max_memory_allocated() - before
+        launches = dict.fromkeys(stats[next(iter(stats))]["kernel_launches"],
+                                 0)
+        for st in stats.values():
+            for k, v in st["kernel_launches"].items():
+                launches[k] += v
+        check(launches["lut16_adc"] > 0 and launches["lut16_adc_topk"] > 0
+              and launches["block_sparse_matmul"] > 0,
+              f"the cluster did not launch K1, K2 and K3: {launches}")
+        check(launches["inverted_value_forward"] == 0,
+              "the cluster launched B4")
+
+        # faults, last: they tear the topology down
+        sc = ShardClient("127.0.0.1", cluster.scorers[0].port, timeout=120)
+        try:
+            for mode in ("corrupt_next", "close_next"):
+                sc.call("fault", {"mode": mode})
+                before = sum(c.reconnects for c in router.scorers)
+                parity(router, f"after a {mode} fault")
+                check(sum(c.reconnects for c in router.scorers)
+                      == before + 1, f"{mode} was not healed by a reconnect")
+        finally:
+            sc.close()
+        wait_replica(cluster, router._last_seq)
+        cluster.kill_scorer(0)
+        reads = router.stats["replica_reads"]
+        got = router.search_sparse(ds.q_sparse[rows32], ds.q_dense[rows32])
+        same(got, comp.one(ds.q_sparse[rows32], ds.q_dense[rows32]),
+             "scorer 0 killed: the replica's full part")
+        check(router.stats["replica_reads"] == reads + 32,
+              "the replica did not serve the request")
+        cluster.kill_primary()
+        t0 = time.perf_counter()
+        term = router.failover()
+        failover_s = time.perf_counter() - t0
+        got = router.search_sparse(ds.q_sparse[7:8], ds.q_dense[7:8])
+        same(got, comp.one(ds.q_sparse[7:8], ds.q_dense[7:8]),
+             "after failover: the new primary's direct path")
+        try:
+            router.search_sparse(ds.q_sparse[rows32], ds.q_dense[rows32])
+            check(False, "a fan-out with scorer 0 dead and no replica "
+                         "returned a result")
+        except DegradedResultError:
+            pass
+        status = router.status()
+        hops = router.hops()
+        score = {name: {"p50_ms": None if st["score_s_p50"] is None
+                        else st["score_s_p50"] * 1e3,
+                        "p99_ms": None if st["score_s_p99"] is None
+                        else st["score_s_p99"] * 1e3}
+                 for name, st in stats.items()}
+        emit("cluster", rows=ds.x_sparse.shape[0], scorers=scorers,
+             replicas=1, disk_free=disk_free, build_s=build_s,
+             launch_s=launch_s,
+             bootstrap={n: {"seconds": st["bootstrap_s"],
+                            "store_bytes_fetched": st["store_bytes_fetched"]}
+                        for n, st in boot.items()},
+             fan_vs_one_128_queries=fan_one,
+             stream={"requests": len(requests), "rows": stream_rows,
+                     "first_s": passes[0], "second_s": passes[1],
+                     "first_rows_per_s": stream_rows / passes[0],
+                     "second_rows_per_s": stream_rows / passes[1]},
+             contexts=contexts, hops_s=hops, score_s=score,
+             inserts={"rows": CLUSTER_INSERTS, "batch": 16,
+                      "ack_p50_ms": percentile_ms(ack_s, 50),
+                      "ack_p99_ms": percentile_ms(ack_s, 99)},
+             deletes=CLUSTER_DELETES, delta_slots_at_compaction=delta_slots,
+             compact_s=compact_s, failover_s=failover_s, term=term,
+             parity_checks=parity_checks, recall_at_20=recall, memory=mem,
+             scorer_slice_bytes=slice_bytes,
+             scorer_search_transient_bytes=transient,
+             index_bytes_over_scorers=storage_bytes(
+                 torch, idx.engine.arrays) / scorers,
+             node_launches={n: st["kernel_launches"]
+                            for n, st in stats.items()},
+             launches=launches, router_status=status,
+             seconds=time.perf_counter() - t_phase)
+        return launches
+    except BaseException:
+        if cluster is not None:
+            for hd in [cluster.primary, *cluster.scorers, *cluster.replicas]:
+                with open(hd.log_path, errors="replace") as f:
+                    print(f"--- {hd.name} log tail ---\n{f.read()[-3000:]}",
+                          file=sys.stderr)
+        raise
+    finally:
+        for r in routers:
+            r.close()
+        if cluster is not None:
+            cluster.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 # launch: python -m repro_torch.launch.serve --retrieval, plain / durable /
 # restored, as processes of their own on the card
 # ---------------------------------------------------------------------------
@@ -1896,19 +2462,28 @@ def run_launch():
     out = {}
     try:
         store = os.path.join(tmp, "store")
-        for name, extra in (("plain", []), ("persist", ["--persist-dir", store]),
-                            ("restore", ["--restore", store])):
+        for name, extra in (
+                ("plain", ["--retrieval"]),
+                ("persist", ["--retrieval", "--persist-dir", store]),
+                ("restore", ["--retrieval", "--restore", store]),
+                ("router", ["--role", "router"])):
             t0 = time.perf_counter()
             r = subprocess.run(
-                [sys.executable, "-m", "repro_torch.launch.serve",
-                 "--retrieval", *extra], capture_output=True, text=True,
-                timeout=300, env=env, cwd=REPO)
+                [sys.executable, "-m", "repro_torch.launch.serve", *extra],
+                capture_output=True, text=True, timeout=300, env=env,
+                cwd=REPO)
             check(r.returncode == 0, f"launch.serve {name} exited "
                   f"{r.returncode}: {r.stderr[-2000:]}")
             lines = [ln for ln in r.stdout.splitlines()
                      if not ln.startswith("stats")]
             out[name] = {"seconds": time.perf_counter() - t0,
                          "stdout": [ln[:160] for ln in lines]}
+            if name == "router":
+                status = [ln for ln in lines
+                          if ln.startswith("router status:")]
+                check(len(status) == 1 and "'degraded': 0" in status[0],
+                      f"launch.serve --role router status: {status}")
+                out[name]["status"] = status[0]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit("launch", runs=out, seconds=time.perf_counter() - t_phase)
@@ -2050,6 +2625,9 @@ def main() -> int:
     durable = run_durable(torch, ds, params)
     gc.collect()
     torch.cuda.empty_cache()
+    cluster = run_cluster(torch, ds, params)
+    gc.collect()
+    torch.cuda.empty_cache()
     tables = run_tables(args, torch, ds)
     del ds
     gc.collect()
@@ -2058,6 +2636,7 @@ def main() -> int:
         r["service_launches"] = {"service": service[r["name"]],
                                  "durable": durable[r["name"]]}
         r["tables_launches"] = tables[r["name"]]
+        r["cluster_launches"] = cluster[r["name"]]
         r["sharded_launches"] = sharded[r["name"]]
     run_launch()
     run_reference_store(torch)

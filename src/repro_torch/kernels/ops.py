@@ -6,7 +6,8 @@ The rule for every wrapper: a CPU tensor takes the plain PyTorch version
 raises.  There is no fallback from one to the other.  Before a launch the
 wrapper checks device, dtype, shape and contiguity, and after it the C
 launcher's ``cudaGetLastError()`` (the launchers raise on a nonzero code).
-``LAUNCHES`` counts kernel launches, one per wrapper call that launched.
+``LAUNCHES`` counts kernel launches, one per wrapper call that launched
+(``ref.bump``, under a lock: servers launch from several threads).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from .block_sparse import (TILE, block_sparse_cuda, dense_to_bcsr,
 from .lut16 import (LUT_WIDTH, SMEM_PER_CTA, THREADS, candidate_buffer_width,
                     lut16_adc_cuda, lut16_adc_topk_cuda, pack_codes, plan_adc,
                     topk_ctas_per_sm, topk_smem_bytes, unpack_codes)
-from .ref import (PLAIN_CALLS, block_sparse_plain,
+from .ref import (PLAIN_CALLS, block_sparse_plain, bump,
                   inverted_value_forward_plain, lut16_adc_plain,
                   lut16_adc_topk_plain, stable_topk)
 
@@ -149,7 +150,7 @@ def lut16_adc(codes: torch.Tensor, lut: torch.Tensor, *,
         plan = plan_adc(q, n, kc, lut16.shape[1], _sm_count(codes.device),
                         packed)
         out = lut16_adc_cuda(codes, lut16, packed=packed, plan=plan)
-        LAUNCHES["lut16_adc"] += 1
+        bump(LAUNCHES, "lut16_adc")
     else:
         out = lut16_adc_plain(codes, lut, packed=packed)
     return out[0] if single else out
@@ -201,7 +202,7 @@ def lut16_adc_topk(codes: torch.Tensor, lut: torch.Tensor, k: int, *,
                                     codes.device)
     s, ids = lut16_adc_topk_cuda(codes, lut16, base.contiguous(), cbuf=cbuf,
                                  packed=packed, bq=bq, rows_per_cta=rows)
-    LAUNCHES["lut16_adc_topk"] += 1
+    bump(LAUNCHES, "lut16_adc_topk")
     return _normalize(s[:, :k], ids[:, :k])
 
 
@@ -255,7 +256,7 @@ def block_sparse_matmul_bcsr(q_head: torch.Tensor, tiles: torch.Tensor,
             raise ValueError("BCSR arrays must be contiguous on "
                              f"{q_head.device}")
     out = block_sparse_cuda(q_head.contiguous(), tiles, ptr, col)
-    LAUNCHES["block_sparse_matmul"] += 1
+    bump(LAUNCHES, "block_sparse_matmul")
     return out
 
 
@@ -283,7 +284,7 @@ def inverted_value_forward(ptr: torch.Tensor, rows: torch.Tensor,
         raise ValueError(f"B4 takes P_pad a multiple of chunk={chunk} and a "
                          f"{bq} x {bn} f32 tile in shared memory")
     out = inverted_value_forward_cuda(ptr, rows, qidx, contrib, **kw)
-    LAUNCHES["inverted_value_forward"] += 1
+    bump(LAUNCHES, "inverted_value_forward")
     return out
 
 

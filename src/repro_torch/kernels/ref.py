@@ -3,7 +3,9 @@
 Each computes what its CUDA kernel computes, on any device.  The wrappers in
 ``kernels/ops.py`` run them for CPU tensors; on the card they serve only as
 the reference the kernels are held against.  ``PLAIN_CALLS`` counts their
-calls, so a run can show that its main path did not take them.
+calls, so a run can show that its main path did not take them; ``bump``
+adds to either count table under one lock, since the cluster tier's
+servers search from one thread per connection.
 
 ``lut16_adc_plain`` adds the subspace terms in the kernels' order
 (k = 0..K-1, starting from +0), so on the same inputs it matches K1 bit for
@@ -15,17 +17,28 @@ done on the f32 bits as ``cvt.rna.tf32.f32`` does it.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from .lut16 import unpack_codes
 
 __all__ = ["lut16_adc_plain", "lut16_adc_topk_plain", "block_sparse_plain",
            "inverted_value_forward_plain", "stable_topk", "tf32_split",
-           "PLAIN_CALLS"]
+           "PLAIN_CALLS", "bump"]
 
 PLAIN_CALLS = dict.fromkeys(
     ("lut16_adc", "lut16_adc_topk", "block_sparse_matmul",
      "inverted_value_forward"), 0)
+
+_COUNT_LOCK = threading.Lock()
+
+
+def bump(counts: dict, key: str) -> None:
+    """Add one to ``counts[key]`` (a ``+=`` on a dict item is not atomic
+    across threads)."""
+    with _COUNT_LOCK:
+        counts[key] += 1
 
 
 def stable_topk(x: torch.Tensor, k: int):
@@ -51,7 +64,7 @@ def lut16_adc_plain(codes: torch.Tensor, lut: torch.Tensor, *,
     """out[q, n] = sum_k lut[q, k, codes[n, k]]: codes (N, Kc) uint8, lut
     (Q, kl, l) f32 with kl == Kc, or kl == 2*Kc for packed codes (odd K
     carries its zero phantom column).  Returns (Q, N) f32."""
-    PLAIN_CALLS["lut16_adc"] += 1
+    bump(PLAIN_CALLS, "lut16_adc")
     return _scan(codes, lut, packed)
 
 
@@ -60,7 +73,7 @@ def lut16_adc_topk_plain(codes: torch.Tensor, lut: torch.Tensor,
                          packed: bool = False):
     """Top-k of ``base + scan``: materialise the (Q, N) scores, then a
     stable descending sort.  Returns (Q, k) f32 scores and int32 ids."""
-    PLAIN_CALLS["lut16_adc_topk"] += 1
+    bump(PLAIN_CALLS, "lut16_adc_topk")
     dense = _scan(codes, lut, packed)
     return stable_topk(dense if base is None else base + dense, k)
 
@@ -69,7 +82,7 @@ def block_sparse_plain(q: torch.Tensor, tiles: torch.Tensor, ptr: torch.Tensor,
                        col: torch.Tensor) -> torch.Tensor:
     """q (Q, D_pad) @ BCSR (tiles (T, br, bc), ptr (NB+1,), col (T,))^T ->
     (Q, NB * br).  A row block without tiles scores zero."""
-    PLAIN_CALLS["block_sparse_matmul"] += 1
+    bump(PLAIN_CALLS, "block_sparse_matmul")
     nq = q.shape[0]
     _, br, bc = tiles.shape
     nb = ptr.shape[0] - 1
@@ -122,7 +135,7 @@ def inverted_value_forward_plain(ptr: torch.Tensor, rows: torch.Tensor,
     the entries are scattered by their rank inside their (query, row)
     group, one rank per scatter, so no scatter meets a target twice and no
     atomic order can change a bit."""
-    PLAIN_CALLS["inverted_value_forward"] += 1
+    bump(PLAIN_CALLS, "inverted_value_forward")
     qb, p_pad = rows.shape
     nb = num_row_blocks
     dev = rows.device

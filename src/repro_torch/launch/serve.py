@@ -1,4 +1,4 @@
-"""Serving launcher of the port: the retrieval modes of
+"""Serving launcher of the port: the retrieval and cluster modes of
 ``repro.launch.serve``, on the card unless ``--device cpu``.
 
 Retrieval mode (DESIGN.md §5): build a synthetic hybrid index, stand up the
@@ -20,9 +20,19 @@ The store is the JAX package's format, so either package can restore it.
     PYTHONPATH=src python -m repro_torch.launch.serve --retrieval \
         --restore /tmp/hybrid-store              # after a restart
 
-``--metrics-port`` exposes the service's metrics registry as a text
-endpoint.  The LM mode (``--arch``) and the cluster mode (``--role``) are
-not ported yet and exit with the ROADMAP item they wait for.
+Cluster mode (DESIGN.md §8): ``--role router`` spawns a local cluster
+(primary + ``--cluster-scorers`` scorers + ``--replicas`` replicas, each a
+process of its own on ``--device``), drives inserts, deletes and searches
+through a ``ClusterRouter`` and prints its status; ``--role shard
+--shard-role {primary,scorer,replica}`` runs one node of a hand-laid-out
+deployment (the remaining flags go to the shard server).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --role router \
+        --points 2000 --queries 16 --cluster-scorers 2 --replicas 1
+
+``--metrics-port`` exposes the service's (or router's) metrics registry as
+a text endpoint.  The LM mode (``--arch``) is not ported yet and exits
+with the ROADMAP item it waits for.
 """
 
 from __future__ import annotations
@@ -34,8 +44,7 @@ import time
 import numpy as np
 
 _WAITS = {"--arch": "ROADMAP queue A items 8-9 (the PQ LM head and the "
-                    "LM zoo)",
-          "--role": "ROADMAP queue A item 6 (the cluster tier)"}
+                    "LM zoo)"}
 
 
 def _maybe_metrics_server(args, registry):
@@ -172,15 +181,84 @@ def run_retrieval(args) -> None:
         svc.close()
 
 
+def run_router(args) -> None:
+    """Local cluster demo (DESIGN.md §8): spawn the shard-server topology
+    on ``--device``, drive mutations + searches through a
+    ``ClusterRouter``, report its status and hop totals."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core.hybrid import HybridIndex
+    from repro_torch.serve.cluster import LocalCluster
+
+    n0 = args.points - 64
+    ds = _dataset(args)
+    idx = HybridIndex.build(ds.x_sparse[:n0], ds.x_dense[:n0], _params(),
+                            mutable=True, device=args.device)
+    root = tempfile.mkdtemp(prefix="cluster-demo-")
+    print(f"spawning cluster on {args.device}: primary + "
+          f"{args.cluster_scorers} scorer(s) + {args.replicas} replica(s) "
+          f"under {root}")
+    try:
+        with LocalCluster.launch(idx, root,
+                                 num_scorers=args.cluster_scorers,
+                                 num_replicas=args.replicas,
+                                 device=args.device) as cluster:
+            del idx
+            router = cluster.router(h=args.h,
+                                    replica_max_lag=args.replica_max_lag)
+            ms = _maybe_metrics_server(args, router.obs.metrics)
+            try:
+                new = router.insert(ds.x_sparse[n0:], ds.x_dense[n0:])
+                router.delete(new[:8].tolist())
+                t0 = time.perf_counter()
+                s, ids = router.search_sparse(ds.q_sparse, ds.q_dense)
+                dt = time.perf_counter() - t0
+                if not (ids.shape == (args.queries, args.h)
+                        and np.isfinite(s).all()):
+                    raise RuntimeError(f"served results are not finite "
+                                       f"({args.queries}, {args.h}): "
+                                       f"{ids.shape}")
+                print(f"served {ids.shape[0]} queries in {dt:.2f}s "
+                      f"(top ids {ids[0, :5].tolist()})")
+                print("router status:", router.status())
+                print("hop stage totals (s):", router.hops())
+            finally:
+                if ms is not None:
+                    ms.close()
+                router.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv=None):
-    """Parse args and run a retrieval mode; the modes not ported yet exit
-    with the ROADMAP item they wait for."""
+    """Parse args and dispatch to the retrieval or cluster launcher; the LM
+    mode exits with the ROADMAP item it waits for.
+
+    ``--role shard`` short-circuits BEFORE the full parser: the remaining
+    flags (with ``--shard-role`` mapped to the server's ``--role``) are
+    handed verbatim to ``repro_torch.serve.cluster.shard_server.main``, so
+    one entry point launches any node of a hand-laid-out deployment."""
+    import sys
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if "--role" in argv and argv[argv.index("--role") + 1:][:1] == ["shard"]:
+        from repro_torch.serve.cluster import shard_server
+        i = argv.index("--role")
+        rest = argv[:i] + argv[i + 2:]
+        rest = ["--role" if a == "--shard-role" else a for a in rest]
+        return shard_server.main(rest)
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--retrieval", action="store_true",
-                    help="serve a hybrid retrieval index (the only mode "
-                         "ported so far)")
+                    help="serve a hybrid retrieval index")
     ap.add_argument("--arch", help="LM mode: not ported yet")
-    ap.add_argument("--role", help="cluster mode: not ported yet")
+    # cluster mode (DESIGN.md §8)
+    ap.add_argument("--role", choices=["router", "shard"],
+                    help="cluster mode: 'shard' runs one shard-server "
+                         "process (with --shard-role); 'router' spawns and "
+                         "drives a local cluster")
+    ap.add_argument("--cluster-scorers", type=int, default=2)
+    ap.add_argument("--replicas", type=int, default=0)
+    ap.add_argument("--replica-max-lag", type=int, default=0)
     ap.add_argument("--points", type=int, default=20000)
     ap.add_argument("--queries", type=int, default=64)
     ap.add_argument("--shards", type=int, default=1)
@@ -203,8 +281,10 @@ def main(argv=None):
     for flag, waits in _WAITS.items():
         if getattr(args, flag[2:]) is not None:
             ap.error(f"{flag} is not ported yet: it waits for {waits}")
+    if args.role == "router":
+        return run_router(args)
     if not args.retrieval:
-        ap.error("pass --retrieval (the LM mode waits for "
+        ap.error("pass --retrieval or --role (the LM mode waits for "
                  f"{_WAITS['--arch']})")
     if args.persist_dir and args.restore:
         ap.error("--persist-dir bootstraps a new store and --restore "

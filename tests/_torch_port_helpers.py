@@ -1,5 +1,6 @@
 """Shared helpers of the port tests (tests/test_torch_*.py): carrying a JAX
-index across to the port, and the tie-aware comparison of top-k results.
+index across to the port, the tie-aware comparison of top-k results, and
+what the cluster tests share.
 
 XLA and PyTorch sum in different orders, so scores agree only within a
 tolerance, and two candidates whose reference scores lie within that
@@ -7,6 +8,7 @@ tolerance may swap places.  ``assert_topk_match`` accepts exactly those
 swaps and nothing else."""
 
 import numpy as np
+import pytest
 
 RTOL, ATOL = 1e-5, 1e-4        # tests/test_kernels.py's kernel tolerance
 
@@ -68,3 +70,38 @@ def assert_topk_match(got_s, got_ids, want_s, want_ids, *, rtol=RTOL,
                 ok = _near(got_s[r, p], want_s[r, -1], rtol, atol)
             assert ok, (f"row {r} position {p}: id {gid} where the "
                         f"reference has {int(want_ids[r, p])} without a tie")
+
+
+# -- cluster tests (tests/test_torch_cluster*.py) -----------------------------
+
+CLUSTER_TIMEOUT_S = 30.0       # every socket wait of a cluster test
+
+
+def wait_replica_seq(port: int, seq: int, *, timeout=CLUSTER_TIMEOUT_S):
+    """Poll a replica's ``status`` until it has applied ``seq``; returns
+    the status meta.  Fails after ``timeout`` seconds."""
+    import time
+
+    from repro_torch.serve.cluster import ShardClient, wait_ready
+    rc = ShardClient("127.0.0.1", port, timeout=timeout)
+    try:
+        deadline = time.monotonic() + timeout
+        while True:
+            st = wait_ready(rc, timeout=timeout)
+            if st["applied_seq"] >= seq:
+                return st
+            if time.monotonic() > deadline:
+                raise AssertionError(f"replica stuck at {st}, want {seq}")
+            time.sleep(0.05)
+    finally:
+        rc.close()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread_nodes():
+    """Spawned cluster nodes inherit ``OMP_NUM_THREADS=1``: a test's nodes
+    share the machine with the other test workers.  A module that imports
+    this fixture gets it for all its tests."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        yield

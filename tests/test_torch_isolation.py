@@ -1,9 +1,10 @@
-"""The port stands alone: no file of src/repro_torch, and neither
-chip_smoke.py nor tools/lut16_probe.py, imports jax or the JAX package
-``repro``, and the package (its serving, persistence, observability,
-checkpoint and launch subpackages included) imports in a process where jax
-cannot be imported at all.  ``tools/make_reference_store.py`` is the
-reference's tool and imports ``repro`` on purpose."""
+"""The port stands alone: no file of src/repro_torch, and none of
+chip_smoke.py, tools/lut16_probe.py and tools/context_probe.py, imports
+jax or the JAX package ``repro``, and the package (its serving, cluster,
+persistence, observability, checkpoint and launch subpackages included)
+imports in a process where jax cannot be imported at all.
+``tools/make_reference_store.py`` is the reference's tool and imports
+``repro`` on purpose."""
 
 import ast
 import os
@@ -15,7 +16,8 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "tools" / "lut16_probe.py"]
+    REPO / "chip_smoke.py", REPO / "tools" / "lut16_probe.py",
+    REPO / "tools" / "context_probe.py"]
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -44,6 +46,8 @@ def test_package_imports_without_jax():
             "repro_torch.core.distributed, repro_torch.kernels.ops, "
             "repro_torch.data, repro_torch.serve, repro_torch.persist, "
             "repro_torch.obs, repro_torch.checkpoint, "
+            "repro_torch.serve.cluster, "
+            "repro_torch.serve.cluster.shard_server, "
             "repro_torch.launch.serve\n"
             "assert 'jax' not in {m.split('.')[0] for m, v in "
             "sys.modules.items() if v is not None}\n")

@@ -193,8 +193,15 @@ def test_launch_serve_retrieval_plain_durable_restored(tmp_path):
 
 @pytest.mark.parametrize("flag", ["--role", "--arch"])
 def test_launch_serve_unported_modes_name_their_item(flag, capsys):
+    """``--arch`` names the ROADMAP item it waits for; ``--role`` is ported
+    (the cluster tier), so an unknown role is refused with the two it
+    takes."""
     from repro_torch.launch.serve import main
     with pytest.raises(SystemExit) as e:
         main(["--retrieval", flag, "x"])
     assert e.value.code == 2
-    assert "waits for ROADMAP queue A" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    if flag == "--arch":
+        assert "waits for ROADMAP queue A" in err
+    else:
+        assert "invalid choice: 'x'" in err and "{router,shard}" in err
