@@ -24,8 +24,10 @@ package wrote (``tests/data/reference_store``) recovered on the card and
 held to the reference's results (phase ``reference_store``).  It holds
 every kernel against its plain PyTorch version on the card, at the
 slice's shapes and at those the cluster's nodes give it (phases
-``kernels_checked`` and ``value_forward``, the latter also driving
-``score_inverted_vf``).  Each phase prints one JSON line; any failed check
+``kernels_checked``, ``score_inverted_vf`` — B4, the pass-1 tail bias,
+which every search path launches, timed beside the plain route — and
+``value_forward``, the JAX layout's stream kernel, off every path).  Each
+phase prints one JSON line; any failed check
 raises, and the script exits non-zero.  The last line is ``{"ok": true,
 "device": {...}}``.  Without a CUDA device, or without the rest of the
 repository beside it, it fails before printing a result.  It imports
@@ -47,6 +49,7 @@ rows.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -182,6 +185,20 @@ def device_profile(torch, fn, runs=3) -> dict:
                     for k, ms, c in per_kernel[:10]]}
 
 
+@contextlib.contextmanager
+def plain_tail(ops):
+    """Within the block the kernel backends take the tail bias from
+    ``score_inverted`` (one scatter-add a query slot), not from B4: the
+    plain route, timed beside B4's in one run."""
+    from repro_torch.core.sparse_index import score_inverted
+    b4 = ops.score_inverted_vf
+    ops.score_inverted_vf = score_inverted
+    try:
+        yield
+    finally:
+        ops.score_inverted_vf = b4
+
+
 def profile_search(torch, idx, ds, nq, h, alpha, beta, runs=3):
     """``device_profile`` of one ``HybridIndex.search`` of ``nq`` queries."""
     qs, qd = ds.q_sparse[:nq], ds.q_dense[:nq]
@@ -233,6 +250,10 @@ def run_slice(args, torch):
     plain = dict(PLAIN_CALLS)
     check(launches["lut16_adc_topk"] >= 1, "main path did not launch K2")
     check(launches["block_sparse_matmul"] >= 1, "main path did not launch K3")
+    check(launches["score_inverted_vf"] == 1, "main path did not launch B4 "
+          "once")
+    check(launches["inverted_value_forward"] == 0,
+          "main path launched the stream B4")
     check(sum(plain.values()) == 0, f"main path ran plain versions: {plain}")
     check(res.ids.shape == (128, h) and bool(np.isfinite(res.scores).all()),
           "main-path result is not finite (128, h)")
@@ -277,8 +298,15 @@ def run_slice(args, torch):
           "c1=2000 did not route through K1")
     check(wide[2].shape[1] == min(2000, args.rows), "c1=2000 candidates")
 
-    latency = {}
-    for nq in (1, 8, 128):
+    with plain_tail(ops):
+        plain_route = eng.search(q_dims, q_vals, q_dense, h=h, alpha=alpha,
+                                 beta=beta)
+    check(all(torch.equal(a, b) for a, b in zip(fused, plain_route)),
+          "the search with score_inverted's tail != the search with B4's")
+
+    # both routes of the tail bias in turns (B4, plain, plain, B4), the
+    # median of 20 searches each
+    def search_ms(nq):
         qs, qd = ds.q_sparse[:nq], ds.q_dense[:nq]
         for _ in range(3):
             idx.search(qs, qd, h=h, alpha=alpha, beta=beta)
@@ -288,16 +316,33 @@ def run_slice(args, torch):
             idx.search(qs, qd, h=h, alpha=alpha, beta=beta)
             times.append(time.perf_counter() - t0)
         med = statistics.median(times)
-        latency[str(nq)] = {"median_ms": med * 1e3, "min_ms": min(times) * 1e3,
-                            "qps": nq / med}
+        return {"median_ms": med * 1e3, "min_ms": min(times) * 1e3,
+                "qps": nq / med}
+
+    latency, latency_plain = {}, {}
+    for nq in (1, 8, 128):
+        turns = {"b4": [], "plain": []}
+        for route in ("b4", "plain", "plain", "b4"):
+            with (plain_tail(ops) if route == "plain"
+                  else contextlib.nullcontext()):
+                turns[route].append(search_ms(nq))
+        for out, route in ((latency, "b4"), (latency_plain, "plain")):
+            out[str(nq)] = {**turns[route][0], "turns_ms": [
+                t["median_ms"] for t in turns[route]]}
     profiles = {str(nq): profile_search(torch, idx, ds, nq, h, alpha, beta)
-                for nq in (1, 128)}
+                for nq in (1, 8, 128)}
+    with plain_tail(ops):
+        profiles_plain = {str(nq): profile_search(torch, idx, ds, nq, h,
+                                                  alpha, beta)
+                          for nq in (1, 8, 128)}
     emit("slice", c1=c1, c2=c2, h=h, recall_at_20=recall,
          exact_topk_s=exact_s, main_path_launches=launches,
          main_path_plain_calls=plain, fused_equals_materialised=True,
          repeat_identical=same_twice, packed_ids_equal=True,
          packed_max_abs_err=packed_err, c1_2000_routes_k1=True,
-         search_latency=latency, search_profile=profiles,
+         plain_tail_equals_b4=True, search_latency=latency,
+         search_latency_plain_tail=latency_plain, search_profile=profiles,
+         search_profile_plain_tail=profiles_plain,
          max_memory_allocated=torch.cuda.max_memory_allocated())
     return (idx, ds, (q_dims, q_vals, q_dense), launches, c1, res, profiles,
             true_ids)
@@ -638,8 +683,9 @@ def kernel_row(name, source, replaces, launches, m, nbytes, nops,
 
 
 def cluster_kernel_shapes(torch, ops, ref, arrays, queries, c1) -> dict:
-    """K1, K2 and K3 at the shapes the ``cluster`` phase's nodes give them,
-    each against its plain version on the same inputs:
+    """K1, K2, K3 and B4 at the shapes the ``cluster`` phase's nodes give
+    them, each against its plain version on the same inputs (B4 bit for
+    bit, on each part's localised inverted index):
 
     * a scorer's ragged row slice (``split_index_arrays(..., 2,
       ragged=True)``) and the full index (the replica's ``full`` part, the
@@ -676,6 +722,7 @@ def cluster_kernel_shapes(torch, ops, ref, arrays, queries, c1) -> dict:
                 check(all(torch.equal(x, y) for x, y in zip(
                     got, ops.lut16_adc_topk(a.codes, lut, k, bias=bias))),
                       f"K2 at {where}, k = {k}: two launches differ")
+            b4_equal(torch, ops, a.inv_index, qd, qv, f"B4 at {where}")
             q_head = scatter_head_queries(qd, qv, a.head_pos,
                                           a.head.block.shape[1])
             bcsr = (a.head_tiles, a.head_ptr, a.head_col)
@@ -932,12 +979,246 @@ def run_kernels(torch, idx, queries, launches, c1):
 
 
 # ---------------------------------------------------------------------------
-# value_forward: B4 through score_inverted_vf, against score_inverted
+# score_inverted_vf: B4, the pass-1 tail bias in one launch, against
+# score_inverted (its plain version), on the slice, at edges, with no sync
+# ---------------------------------------------------------------------------
+
+def tail_bytes(torch, inv, q_dims) -> tuple[int, int]:
+    """(bytes, live entries) the tail bias needs: the (Q, N) f32 output
+    written once, each live posting (row and value) of each valid slot read
+    once, and the queries read once."""
+    n, d = inv.num_points, inv.rows.shape[0]
+    qd = q_dims.long()
+    valid = (qd >= 0) & (qd < d)
+    live = (inv.rows[torch.where(valid, qd, 0)] < n) & valid[..., None]
+    entries = int(live.sum())
+    nbytes = (4 * q_dims.shape[0] * n + 8 * entries
+              + q_dims.numel() * (q_dims.element_size() + 4))
+    return nbytes, entries
+
+
+def tail_yardstick(torch, inv, q_dims, q_vals):
+    """One cuSPARSE product for the same function: the tail postings as an
+    (N x d) CSR times the queries scattered to (d x Q).  Returns a
+    callable."""
+    from repro_torch.core.engine import scatter_queries_compact
+    n, d = inv.num_points, inv.rows.shape[0]
+    live = inv.rows < n
+    dims = torch.arange(d, device=inv.rows.device)[:, None].expand_as(
+        inv.rows)
+    x_csr = torch.sparse_coo_tensor(
+        torch.stack([inv.rows[live].long(), dims[live]]), inv.vals[live],
+        (n, d)).coalesce().to_sparse_csr()
+    q_mat = scatter_queries_compact(q_dims, q_vals, d)[:, :d].T.contiguous()
+    return lambda: torch.sparse.mm(x_csr, q_mat)
+
+
+def b4_equal(torch, ops, inv, qd, qv, what: str, plan=None):
+    """B4 against score_inverted bit for bit, and against its own second
+    launch; returns B4's output.  With ``plan`` the launcher runs at that
+    geometry instead of the op's own (the op takes none)."""
+    from repro_torch.core.sparse_index import score_inverted
+    from repro_torch.kernels.inverted import score_inverted_cuda
+
+    def b4():
+        if plan is None:
+            return ops.score_inverted_vf(inv, qd, qv)
+        return score_inverted_cuda(inv.rows, inv.vals, qd, qv,
+                                   inv.num_points, plan)
+    got = b4()
+    check(got.is_contiguous() and tuple(got.shape) == (qd.shape[0],
+                                                        inv.num_points),
+          f"B4 output at {what}: {tuple(got.shape)}")
+    check(torch.equal(got, score_inverted(inv, qd, qv)),
+          f"B4 != score_inverted at {what}")
+    check(torch.equal(got, b4()), f"B4 at {what}: two launches differ")
+    return got
+
+
+def edge_cases_b4(torch, ops) -> dict:
+    """B4 at small shapes on the card, each equal to score_inverted bit for
+    bit (the cases of tests/test_torch_score_inverted_vf.py and a few the
+    card alone can show: rows off 16-byte alignment, explicit plans, q_vals
+    in f64, strided queries), and the wrapper's refusals."""
+    import scipy.sparse as sp
+    from repro_torch.core.sparse_index import (DeltaPostings,
+                                               PaddedInvertedIndex,
+                                               build_compact_columns,
+                                               build_padded_inverted_index,
+                                               sparse_queries_to_padded)
+    from repro_torch.kernels.inverted import InvertedPlan
+
+    def problem(n, d, qn, seed, nq_max=32, qdens=0.05):
+        x = sp.random(n, d, density=0.02, random_state=seed, format="csr",
+                      dtype=np.float32)
+        cols, xc = build_compact_columns(x)
+        inv = build_padded_inverted_index(xc, device="cuda")
+        qs = sp.random(qn, d, density=qdens, random_state=seed + 1,
+                       format="csr", dtype=np.float32)
+        qd, qv = sparse_queries_to_padded(qs, cols, nq_max=nq_max)
+        return inv, qd, qv, cols.num_active
+
+    def run(name, inv, qd, qv, plan=None):
+        qd = qd if torch.is_tensor(qd) else torch.from_numpy(qd).cuda()
+        qv = qv if torch.is_tensor(qv) else torch.from_numpy(qv).cuda()
+        b4_equal(torch, ops, inv, qd, qv, name, plan)
+        done.append(name)
+
+    def index(rows, vals, n):
+        return PaddedInvertedIndex(rows=rows.contiguous(),
+                                   vals=vals.contiguous(), num_points=n)
+
+    rng = np.random.default_rng(5)
+    done: list[str] = []
+    inv, qd, qv, d_act = problem(700, 500, 9, 1)
+    run("basic", inv, qd, qv)
+    run("q1", inv, qd[:1], qv[:1])
+    run("int64_dims", inv, qd.astype(np.int64), qv)
+    q2, v2 = qd.copy(), qv.copy()
+    q2[0, 1], v2[0, 1] = q2[0, 0], 0.5
+    q2[2, :], v2[2, :] = d_act, 0.0
+    run("repeated_dim_and_all_pad_query", inv, q2, v2)
+    check(not bool(ops.score_inverted_vf(inv, torch.from_numpy(q2).cuda(),
+                                         torch.from_numpy(v2).cuda())[2]
+                   .any()), "an all-pad query does not score zero")
+    q3 = qd.copy()
+    q3[0, 0], q3[1, 3], q3[4, 1], q3[5, 2] = -1, d_act, d_act + 7, -3
+    run("dims_out_of_range", inv, q3, qv)
+    drop = torch.from_numpy(rng.random(tuple(inv.rows.shape)) < 0.3).cuda()
+    run("sentinel_mid_list", index(torch.where(drop, 700, inv.rows),
+                                   torch.where(drop, 0.0, inv.vals), 700),
+        qd, qv)
+    rows, vals = inv.rows.clone(), inv.vals.clone()
+    rows[:, 0], vals[:, 0] = 17, 0.75
+    run("one_row_every_slot", index(rows, vals, 700), qd, qv)
+    perm = torch.from_numpy(rng.permuted(np.tile(
+        np.arange(inv.rows.shape[1]), (inv.rows.shape[0], 1)), axis=1)).cuda()
+    run("unsorted_lists", index(inv.rows.gather(1, perm),
+                                inv.vals.gather(1, perm), 700), qd, qv)
+    run("q_vals_f64", inv, torch.from_numpy(qd).cuda(),
+        torch.from_numpy(qv.astype(np.float64) * 1.1).cuda())
+    wide = torch.from_numpy(np.concatenate([qd, qd], axis=1)).cuda()
+    run("strided_queries", inv, wide[:, ::2], torch.from_numpy(qv).cuda())
+    inv1, qd1, qv1, _ = problem(50, 80, 3, 2)
+    run("one_tile", inv1, qd1, qv1)
+    inv2, qd2, qv2, _ = problem(900, 400, 4, 3, nq_max=300, qdens=0.9)
+    run("two_windows_many_pieces", inv2, qd2, qv2)
+    run("two_windows_many_pieces_streaming", inv2, qd2, qv2,
+        InvertedPlan(256, 4, 3, 2, 0))
+    inv3, qd3, qv3, _ = problem(3001, 600, 7, 4)
+    run("n_odd", inv3, qd3, qv3)
+    for rows, per_cta, cap in ((256, 3, 0), (512, 2, 8192), (3072, 1, 100)):
+        tiles = -(-3001 // rows)
+        run(f"n_odd_plan_{rows}_{per_cta}_{cap}", inv3, qd3, qv3,
+            InvertedPlan(rows, tiles, per_cta, -(-tiles // per_cta), cap))
+    post = DeltaPostings(40, l_max=2, l_cap=6)
+    for slot in range(30):
+        dims = rng.choice(40, 5, replace=False)
+        if slot % 7 == 3:                       # a row that repeats a dim
+            dims = np.concatenate([dims, dims[:2]])
+        post.append(slot, dims, rng.normal(size=len(dims)).astype(np.float32))
+    run("delta_repeated_row", post.to_padded(33, device="cuda"),
+        np.tile(np.arange(40, dtype=np.int32), (3, 1)),
+        rng.normal(size=(3, 40)).astype(np.float32))
+
+    refusals = 0
+    qd_t, qv_t = torch.from_numpy(qd).cuda(), torch.from_numpy(qv).cuda()
+    for bad, err in (
+            (index(inv.rows.long(), inv.vals, 700), TypeError),
+            (PaddedInvertedIndex(rows=inv.rows.T.contiguous().T,
+                                 vals=inv.vals.T.contiguous().T,
+                                 num_points=700), ValueError),
+            (index(inv.rows, inv.vals[:, :-1], 700), ValueError)):
+        try:
+            ops.score_inverted_vf(bad, qd_t, qv_t)
+        except err:
+            refusals += 1
+    try:
+        ops.score_inverted_vf(inv, qd_t.cpu(), qv_t)
+    except ValueError:
+        refusals += 1
+    check(refusals == 4, f"B4's wrapper refused {refusals} of 4 bad inputs")
+    return {"cases": len(done), "names": done, "refusals": refusals}
+
+
+def run_score_inverted_vf(torch, idx, queries, launches) -> dict:
+    """B4 on the slice's index: equal to score_inverted at Q = 1, 8, 128,
+    with no host sync; its plan against the C side and the occupancy
+    calculator; ms beside the bound, the plain version and cuSPARSE at each
+    Q; a streaming plan, untimed; the edge cases.  Returns its kernel row,
+    with ``launches`` from the slice's main-path run."""
+    from repro_torch.core.sparse_index import score_inverted
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import inverted as inv_k
+
+    inv = idx.engine.arrays.inv_index
+    q_dims, q_vals, _ = queries
+    nq, n = q_dims.shape[0], inv.num_points
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ops.score_inverted_vf(inv, q_dims, q_vals)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    by_q = {}
+    for qn in (1, 8, nq):
+        qd, qv = q_dims[:qn], q_vals[:qn]
+        got = b4_equal(torch, ops, inv, qd, qv, f"the slice, Q = {qn}")
+        lib = tail_yardstick(torch, inv, qd, qv)
+        assert_close(lib().T, got, f"torch.sparse.mm yardstick at Q = {qn}")
+        nbytes, entries = tail_bytes(torch, inv, qd)
+        plan = inv_k.plan_score_inverted(qn, n, sms)
+        # ms times one call, as every other kernel's, host work included;
+        # ms_batched is the mean of 10 back-to-back calls
+        by_q[str(qn)] = {
+            "ms": cuda_ms(lambda: ops.score_inverted_vf(inv, qd, qv)),
+            "ms_batched": cuda_ms(lambda: ops.score_inverted_vf(inv, qd, qv),
+                                  batch=10),
+            "plain_ms": cuda_ms(lambda: score_inverted(inv, qd, qv)),
+            "library_ms": cuda_ms(lib),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
+            "live_entries": entries,
+            "max_abs_err": max_abs(got, score_inverted(inv, qd, qv)),
+            "plan": {**dataclasses.asdict(plan), "grid": plan.grid(qn),
+                     "smem_bytes": plan.smem_bytes,
+                     "smem_bytes_c": inv_k.c_smem_bytes(plan),
+                     "ctas_per_sm": inv_k.ctas_per_sm(plan)}}
+        check(by_q[str(qn)]["plan"]["smem_bytes"]
+              == by_q[str(qn)]["plan"]["smem_bytes_c"],
+              "B4's plan and the C side disagree on shared memory")
+        check(by_q[str(qn)]["plan"]["ctas_per_sm"] >= 1,
+              f"B4's plan at Q = {qn} fits no CTA on an SM")
+    # every CTA streaming (no resident buffer: the lists read again for
+    # each tile), untimed: the same bits at the slice's Q = 128
+    tiles = -(-n // inv_k.MAX_ROWS_PER_TILE)
+    b4_equal(torch, ops, inv, q_dims, q_vals, "the slice, streaming",
+             inv_k.InvertedPlan(inv_k.MAX_ROWS_PER_TILE, tiles,
+                                -(-tiles // 4), 4, 0))
+    edges = edge_cases_b4(torch, ops)
+    m = by_q[str(nq)]
+    emit("score_inverted_vf", launches_main_path=launches, by_q=by_q,
+         no_host_sync=True,
+         equals_score_inverted=True, edge_cases=edges,
+         library="torch.sparse.mm, (N x d_active) CSR x (d_active x Q)",
+         ptxas=ptxas_report(_build.build()["ptxas"]["score_inverted"],
+                            ("score_inverted_kernel",)))
+    row = kernel_row("score_inverted_vf",
+                     "src/repro_torch/csrc/score_inverted.cu",
+                     "src/repro/kernels/block_sparse.py:172", launches, m,
+                     m["bytes"], 2 * m["live_entries"])
+    row.update(by_q=by_q)
+    return row
+
+
+# ---------------------------------------------------------------------------
+# value_forward: the stream B4 (the JAX layout: host planner + stream
+# kernel), off every search, against its plain version and score_inverted
 # ---------------------------------------------------------------------------
 
 def edge_cases_value_forward(torch, ops, ref):
-    """B4 at small shapes on the card: each must equal the port's
-    score_inverted and the plain version bit for bit."""
+    """The stream B4 at small shapes on the card: each must equal the
+    plain version and score_inverted bit for bit."""
     import scipy.sparse as sp
     from repro_torch.core.sparse_index import (build_compact_columns,
                                                build_padded_inverted_index,
@@ -963,18 +1244,17 @@ def edge_cases_value_forward(torch, ops, ref):
             qd[0, 1], qv[0, 1] = qd[0, 0], 0.5      # a repeated dim
             qd[2, :], qv[2, :] = cols.num_active, 0.0   # an all-pad query
         qd_t, qv_t = torch.from_numpy(qd).cuda(), torch.from_numpy(qv).cuda()
-        got = ops.score_inverted_vf(inv, qd_t, qv_t, bn=bn, chunk=16)
-        check(torch.equal(got, score_inverted(inv, qd_t, qv_t)),
-              f"B4 != score_inverted at {(n, d, qn, bn)}")
         st = build_value_forward_stream(inv, qd_t, qv_t, bn=bn, chunk=16)
         kw = dict(bq=st.bq, bn=st.bn, chunk=st.chunk,
                   num_row_blocks=st.num_row_blocks)
-        check(torch.equal(
-            ops.inverted_value_forward(st.ptr, st.rows, st.qidx, st.contrib,
-                                       **kw),
-            ref.inverted_value_forward_plain(st.ptr, st.rows, st.qidx,
-                                             st.contrib, **kw)),
-            f"B4 != plain at {(n, d, qn, bn)}")
+        got = ops.inverted_value_forward(st.ptr, st.rows, st.qidx,
+                                         st.contrib, **kw)
+        check(torch.equal(got, ref.inverted_value_forward_plain(
+            st.ptr, st.rows, st.qidx, st.contrib, **kw)),
+            f"the stream B4 != plain at {(n, d, qn, bn)}")
+        got = got[:qn, :n]
+        check(torch.equal(got, score_inverted(inv, qd_t, qv_t)),
+              f"the stream B4 != score_inverted at {(n, d, qn, bn)}")
         if n == 700:
             check(bool((got[2] == 0).all()), "all-pad query not zero")
         ptr = st.ptr.cpu().numpy().reshape(-1, st.num_row_blocks + 1)
@@ -985,26 +1265,13 @@ def edge_cases_value_forward(torch, ops, ref):
 
 
 def run_value_forward(torch, idx, queries):
-    from repro_torch.core.engine import scatter_queries_compact
     from repro_torch.core.sparse_index import (build_value_forward_stream,
                                                score_inverted)
     from repro_torch.kernels import ops, ref
 
     inv = idx.engine.arrays.inv_index
     q_dims, q_vals, _ = queries
-    nq, n, d_active = q_dims.shape[0], inv.num_points, inv.rows.shape[0]
-    torch.cuda.synchronize()
-    # the path, once, with every count at zero just before it
-    ops.reset_counts()
-    got = ops.score_inverted_vf(inv, q_dims, q_vals)
-    torch.cuda.synchronize()
-    launches = ops.LAUNCHES["inverted_value_forward"]
-    check(launches == 1 and sum(ref.PLAIN_CALLS.values()) == 0,
-          "score_inverted_vf did not launch B4 once")
-    check(tuple(got.shape) == (nq, n), "score_inverted_vf shape")
-    check(torch.equal(got, score_inverted(inv, q_dims, q_vals)),
-          "B4 != score_inverted at the slice shapes")
-
+    nq, n = q_dims.shape[0], inv.num_points
     planner = []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -1014,30 +1281,24 @@ def run_value_forward(torch, idx, queries):
     kw = dict(bq=st.bq, bn=st.bn, chunk=st.chunk,
               num_row_blocks=st.num_row_blocks)
     args = (st.ptr, st.rows, st.qidx, st.contrib)
+    torch.cuda.synchronize()
+    # the path, once, with every count at zero just before it
+    ops.reset_counts()
     out = ops.inverted_value_forward(*args, **kw)
+    torch.cuda.synchronize()
+    launches = ops.LAUNCHES["inverted_value_forward"]
+    check(launches == 1 and sum(ref.PLAIN_CALLS.values()) == 0,
+          "the stream path did not launch the stream B4 once")
     plain = ref.inverted_value_forward_plain(*args, **kw)
-    check(torch.equal(out, plain), "B4 != plain at the slice shapes")
-
-    # yardstick: the tail postings as an (N x d_active) CSR times the
-    # scattered (d_active x Q) queries, one cuSPARSE product
-    live = inv.rows < n
-    dims = torch.arange(d_active, device=inv.rows.device)[:, None].expand_as(
-        inv.rows)
-    coo = torch.sparse_coo_tensor(
-        torch.stack([inv.rows[live].long(), dims[live]]), inv.vals[live],
-        (n, d_active)).coalesce()
-    x_csr = coo.to_sparse_csr()
-    q_cols = scatter_queries_compact(q_dims, q_vals, d_active)[:, :d_active]
-    q_mat = q_cols.T.contiguous()
-    lib = torch.sparse.mm(x_csr, q_mat).T
-    assert_close(lib, got, "torch.sparse.mm yardstick")
-
+    check(torch.equal(out, plain), "the stream B4 != plain at the slice "
+          "shapes")
+    check(torch.equal(out[:nq, :n], score_inverted(inv, q_dims, q_vals)),
+          "the stream B4 != score_inverted at the slice shapes")
+    lib = tail_yardstick(torch, inv, q_dims, q_vals)
     m = dict(ms=cuda_ms(lambda: ops.inverted_value_forward(*args, **kw)),
              plain_ms=cuda_ms(lambda: ref.inverted_value_forward_plain(
                  *args, **kw), runs=5, warmup=1),
-             library_ms=cuda_ms(lambda: torch.sparse.mm(x_csr, q_mat)),
-             max_abs_err=max_abs(out, plain))
-    si_ms = cuda_ms(lambda: score_inverted(inv, q_dims, q_vals))
+             library_ms=cuda_ms(lib), max_abs_err=max_abs(out, plain))
     qb, p_pad = st.rows.shape
     entries = int((st.rows < st.bn).sum())
     padded = int(st.ptr.reshape(qb, -1)[:, -1].sum()) * st.chunk
@@ -1050,9 +1311,8 @@ def run_value_forward(torch, idx, queries):
          planner_ms=statistics.median(planner) * 1e3,
          plain_ms=m["plain_ms"], library_ms=m["library_ms"],
          library="torch.sparse.mm, (N x d_active) CSR x (d_active x Q)",
-         score_inverted_ms=si_ms, stream_entries=entries,
-         padded_entries=padded, p_pad=p_pad, query_blocks=qb,
-         row_blocks=st.num_row_blocks,
+         stream_entries=entries, padded_entries=padded, p_pad=p_pad,
+         query_blocks=qb, row_blocks=st.num_row_blocks,
          padding_share=1.0 - entries / (qb * p_pad), edge_cases=edges)
     return kernel_row("inverted_value_forward",
                       "src/repro_torch/csrc/block_sparse.cu",
@@ -1163,7 +1423,8 @@ def run_sharded(torch, idx, queries, true_ids):
     launches = dict(ops.LAUNCHES)
     check(sum(PLAIN_CALLS.values()) == 0, "the sharded path ran plain versions")
     check(launches["lut16_adc_topk"] == 2 * sum(counts)
-          and launches["lut16_adc"] == sum(counts),
+          and launches["lut16_adc"] == sum(counts)
+          and launches["score_inverted_vf"] == 3 * sum(counts),
           f"the sharded path's launches: {launches}")
     for s in counts[1:]:
         check(all(torch.equal(a, b) for a, b in zip(k2[s], k2[1])),
@@ -1335,8 +1596,9 @@ def run_tables(args, torch, ds):
     launches = dict(ops.LAUNCHES)
     check(sum(PLAIN_CALLS.values()) == 0, "the tables ran plain versions")
     check(launches["lut16_adc"] >= 1 and launches["lut16_adc_topk"] >= 1
-          and launches["block_sparse_matmul"] >= 1,
-          f"the tables did not launch K1, K2 and K3: {launches}")
+          and launches["block_sparse_matmul"] >= 1
+          and launches["score_inverted_vf"] >= 1,
+          f"the tables did not launch K1, K2, K3 and B4: {launches}")
     emit("tables", launches=launches, seconds=time.perf_counter() - t_phase)
     return launches
 
@@ -1393,20 +1655,28 @@ def counted_search(torch, midx, ds, h, alpha, beta):
     res = midx.search(ds.q_sparse, ds.q_dense, h=h, alpha=alpha, beta=beta)
     torch.cuda.synchronize()
     check(sum(PLAIN_CALLS.values()) == 0, "mutable search ran a plain version")
+    st = midx.mutable_state
+    engines = 1 + int(st is not None and st.delta.live_count > 0)
+    check(ops.LAUNCHES["score_inverted_vf"] == engines,
+          f"mutable search did not launch B4 once in each of its {engines} "
+          f"engines: {ops.LAUNCHES}")
     check(res.ids.shape == (ds.q_dense.shape[0], h)
           and bool(np.isfinite(res.scores).all()),
           "mutable search result is not finite (Q, h)")
     return res, dict(ops.LAUNCHES)
 
 
-def delta_kernel_check(torch, midx, q) -> dict:
+def delta_kernel_check(torch, midx, q, timed: bool = False) -> dict:
     """The delta engine's pass 1 at the shapes the mutable path gives it:
     the current snapshot's codes, LUT, pass-1 bias and tombstone mask with
     k == N == capacity.  K2 (up to 1024 slots) or K1 + stable sort (above)
     must equal the plain version bit for bit, and every masked slot must
-    come back with id -1."""
+    come back with id -1.  B4 on the delta's inverted index must equal
+    score_inverted bit for bit at Q = 1, 8, 128; ``timed`` adds its ms
+    beside its bound, the plain version's and cuSPARSE's."""
     from repro_torch.core.engine import pass1_bias
     from repro_torch.core.pq import adc_lut
+    from repro_torch.core.sparse_index import score_inverted
     from repro_torch.kernels import ops, ref
     snap = midx.mutable_state.delta.snapshot()
     arrays, k = snap.arrays, snap.capacity
@@ -1431,8 +1701,21 @@ def delta_kernel_check(torch, midx, q) -> dict:
     check(masked == q_dims.shape[0] * (k - snap.live),
           f"delta at k == N == {k}: {masked} ids -1, expected "
           f"{q_dims.shape[0]} x {k - snap.live} masked slots")
+    inv = arrays.inv_index
+    b4 = {"L": int(inv.rows.shape[1])}
+    for qn in (1, 8, q_dims.shape[0]):
+        qd, qv = q_dims[:qn], q_vals[:qn]
+        b4_equal(torch, ops, inv, qd, qv, f"the delta, N == {k}, Q = {qn}")
+        if timed:
+            nbytes, entries = tail_bytes(torch, inv, qd)
+            b4[str(qn)] = {
+                "ms": cuda_ms(lambda: ops.score_inverted_vf(inv, qd, qv)),
+                "plain_ms": cuda_ms(lambda: score_inverted(inv, qd, qv)),
+                "library_ms": cuda_ms(tail_yardstick(torch, inv, qd, qv)),
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "live_entries": entries}
     return {"kernel": kernel, "k": k, "live": snap.live, "ids_minus_1": masked,
-            "equals_plain": True}
+            "equals_plain": True, "b4_equals_score_inverted": b4}
 
 
 def held_snapshot_check(torch, midx, q, insert, alpha, beta) -> dict:
@@ -1533,7 +1816,7 @@ def run_mutable(args, torch, ds, params, immutable_res):
     check(recall5 >= 0.95, f"recall@{h} after the mutations {recall5} < 0.95")
     steps["after_deletes"] = {
         "main_c1": c1_main, "launches": launches5, "recall_at_20": recall5,
-        "delta_kernel": delta_kernel_check(torch, midx, q),
+        "delta_kernel": delta_kernel_check(torch, midx, q, timed=True),
         "search_latency": timed_searches(torch, midx, ds, h, alpha, beta)}
 
     # 6. 64 more main deletes: the main engine's c1 passes 1024 -> K1
@@ -1654,7 +1937,8 @@ def run_service(args, torch, idx, ds, slice_res):
     launches = dict(ops.LAUNCHES)
     plain = dict(PLAIN_CALLS)
     check(launches["lut16_adc_topk"] >= 1 and launches["block_sparse_matmul"]
-          >= 1, f"the service path did not launch K2 and K3: {launches}")
+          >= 1 and launches["score_inverted_vf"] >= 1,
+          f"the service path did not launch K2, K3 and B4: {launches}")
     check(sum(plain.values()) == 0, f"the service ran plain versions: {plain}")
     traces = svc.obs.tracer.take()
     spans = span_sums(traces, ("dispatch_s", "merge_s"))
@@ -1913,9 +2197,10 @@ def run_durable(torch, ds, params):
         check(sum(PLAIN_CALLS.values()) == 0,
               "the recovered service ran a plain version")
         check(launches["lut16_adc"] >= 1 and launches["lut16_adc_topk"] >= 1
-              and launches["block_sparse_matmul"] >= 1,
-              f"the recovered search did not launch K1, K2 and K3: "
-              f"{launches}")
+              and launches["block_sparse_matmul"] >= 1
+              and launches["score_inverted_vf"] >= 2,
+              f"the recovered search did not launch K1, K2, K3 and B4 "
+              f"(main and delta): {launches}")
         check(np.array_equal(got[1], live[1]) and np.array_equal(got[0],
                                                                  live[0]),
               "recovered ids/scores != the live service's, bit for bit")
@@ -2361,10 +2646,11 @@ def run_cluster(torch, ds, params):
             for k, v in st["kernel_launches"].items():
                 launches[k] += v
         check(launches["lut16_adc"] > 0 and launches["lut16_adc_topk"] > 0
-              and launches["block_sparse_matmul"] > 0,
-              f"the cluster did not launch K1, K2 and K3: {launches}")
+              and launches["block_sparse_matmul"] > 0
+              and launches["score_inverted_vf"] > 0,
+              f"the cluster did not launch K1, K2, K3 and B4: {launches}")
         check(launches["inverted_value_forward"] == 0,
-              "the cluster launched B4")
+              "the cluster launched the stream B4")
 
         # faults, last: they tear the topology down
         sc = ShardClient("127.0.0.1", cluster.scorers[0].port, timeout=120)
@@ -2554,6 +2840,7 @@ def run_reference_store(torch):
         launches = dict(ops.LAUNCHES)
         check(sum(PLAIN_CALLS.values()) == 0, "a plain version ran")
         check(launches["block_sparse_matmul"] >= 1
+              and launches["score_inverted_vf"] >= 1
               and launches["lut16_adc_topk" if fused else "lut16_adc"] >= 1,
               f"{name}: the kernels did not run: {launches}")
         fin = np.isfinite(want_s)
@@ -2607,6 +2894,8 @@ def main() -> int:
      true_ids) = run_slice(args, torch)
     rows = run_kernels(torch, idx, queries, launches, c1)
     rows[1]["profile_split"] = k2_profile_split(profiles)
+    rows.append(run_score_inverted_vf(torch, idx, queries,
+                                      launches["score_inverted_vf"]))
     rows.append(run_value_forward(torch, idx, queries))
     sharded = run_sharded(torch, idx, queries, true_ids)
     params = idx.params
@@ -2618,7 +2907,8 @@ def main() -> int:
     # K1 runs on the mutable path: its count comes from that path's run
     rows[0]["launches"] = run_mutable(args, torch, ds, params,
                                       res)["lut16_adc"]
-    for r, path in zip(rows, ("mutable", "slice", "slice", "value_forward")):
+    for r, path in zip(rows, ("mutable", "slice", "slice", "slice",
+                              "value_forward")):
         r["path"] = path
     gc.collect()
     torch.cuda.empty_cache()

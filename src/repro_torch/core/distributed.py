@@ -32,10 +32,10 @@ from ..device import resolve_device
 from ..kernels import ops
 from ..kernels.ref import stable_topk
 from . import residual as res
-from .engine import Backend, IndexArrays, adc_scores
+from .engine import Backend, IndexArrays, adc_scores, tail_scores
 from .pq import ScalarQuant
 from .sparse_index import (PaddedInvertedIndex, PaddedSparseRows,
-                           TileSparseHead, score_inverted)
+                           TileSparseHead)
 
 __all__ = ["sharded_pass1_topk", "make_sharded_search_fn",
            "make_sharded_search3_fn", "sharded_three_pass_topk", "merge_topk",
@@ -197,7 +197,7 @@ def _pass1_scores_local(codes, lut, inv_rows, inv_vals, q_dims, q_vals,
     inv = PaddedInvertedIndex(rows=inv_rows, vals=inv_vals,
                               num_points=codes.shape[0])
     return (adc_scores(codes, lut, backend)
-            + score_inverted(inv, q_dims, q_vals))
+            + tail_scores(inv, q_dims, q_vals, backend))
 
 
 def _pass1_topk_local(codes, lut, inv_rows, inv_vals, q_dims, q_vals, *,
@@ -211,7 +211,7 @@ def _pass1_topk_local(codes, lut, inv_rows, inv_vals, q_dims, q_vals, *,
         inv = PaddedInvertedIndex(rows=inv_rows, vals=inv_vals,
                                   num_points=codes.shape[0])
         return ops.lut16_adc_topk(
-            codes, lut, k, bias=score_inverted(inv, q_dims, q_vals),
+            codes, lut, k, bias=tail_scores(inv, q_dims, q_vals, backend),
             packed=backend is Backend.CUDA_PACKED)
     return stable_topk(_pass1_scores_local(codes, lut, inv_rows, inv_vals,
                                            q_dims, q_vals, backend), k)

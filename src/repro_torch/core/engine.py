@@ -12,8 +12,9 @@ Counterpart of ``repro.core.engine``:
 * ``Backend`` — which implementation scores pass 1:
     ref          torch gather ADC + dense head matmul
     onehot       one-hot ADC with bf16 LUT (kernels/ops.lut16_adc_onehot)
-    cuda         LUT16 + block-sparse kernels (kernels/ops); pass 1 selects
-                 through the fused scan-and-select when c1 <= 1024
+    cuda         LUT16, block-sparse and inverted-index kernels (kernels/ops);
+                 pass 1 selects through the fused scan-and-select when
+                 c1 <= 1024
     cuda-packed  the same over codes packed two per byte
   On CPU tensors the kernel wrappers run their plain versions.
 """
@@ -35,7 +36,8 @@ from .sparse_index import (PaddedInvertedIndex, PaddedSparseRows,
 
 __all__ = [
     "Backend", "IndexArrays", "ScoringEngine", "adc_scores",
-    "scatter_queries_compact", "scatter_head_queries", "pass1_bias",
+    "scatter_queries_compact", "scatter_head_queries", "tail_scores",
+    "pass1_bias",
     "pass1_scores", "three_pass_search", "tombstone_mask",
     "query_fingerprint", "release_index_arrays",
 ]
@@ -214,13 +216,23 @@ def _head_scores(arrays: IndexArrays, q_head: torch.Tensor,
     return score_head_ref(arrays.head, q_head)
 
 
+def tail_scores(inv: PaddedInvertedIndex, q_dims: torch.Tensor,
+                q_vals: torch.Tensor, backend: Backend) -> torch.Tensor:
+    """The inverted-index tail of the pass-1 bias, (Q, N): B4 through
+    ``ops.score_inverted_vf`` on the kernel backends, ``score_inverted``
+    otherwise (the same bits)."""
+    if backend.uses_kernels:
+        return ops.score_inverted_vf(inv, q_dims, q_vals)
+    return score_inverted(inv, q_dims, q_vals)
+
+
 def pass1_bias(arrays: IndexArrays, q_dims: torch.Tensor, q_vals: torch.Tensor,
                backend: Backend = Backend.CUDA) -> torch.Tensor:
     """The sparse half of pass 1: inverted-index tail + head block.  (Q, N).
 
     The per-(query, row) bias the fused scan-and-select folds into its
     select step; the dense ADC term and the row mask are NOT included."""
-    sparse = score_inverted(arrays.inv_index, q_dims, q_vals)
+    sparse = tail_scores(arrays.inv_index, q_dims, q_vals, backend)
     if arrays.head is not None:
         q_head = scatter_head_queries(q_dims, q_vals, arrays.head_pos,
                                       arrays.head.block.shape[1])

@@ -12,7 +12,8 @@ result on a torch device; the scorers are written in torch:
 * ``PaddedSparseRows`` — per-row residual entries for pass 3.
 * ``DeltaPostings`` — the delta shard's append-only inverted index (host).
 * ``ValueForwardStream`` — the host-planned (row, query, contribution)
-  stream the value-forward kernel (B4) consumes.
+  stream the JAX package's value-forward kernel consumes (the stream B4;
+  the search's B4 reads the padded inverted index itself).
 """
 
 from __future__ import annotations
@@ -196,7 +197,9 @@ def score_inverted(index: PaddedInvertedIndex, q_dims: torch.Tensor,
     time, and inside a slot the rows of one posting list are distinct, so
     no two updates of a call meet on a kept column and no atomic order can
     change a bit.  Pad entries (row id N, value 0) land in an extra column
-    that is sliced off, the ``mode="drop"`` of the JAX version."""
+    that is sliced off, the ``mode="drop"`` of the JAX version.  The
+    kernel backends compute the same bits in one launch with B4
+    (``kernels.ops.score_inverted_vf``); this is its plain version."""
     qn, nq = q_dims.shape
     n = index.num_points
     d = index.rows.shape[0]
@@ -316,7 +319,8 @@ def score_rows(rows: PaddedSparseRows, candidates: torch.Tensor,
 
 @dataclasses.dataclass(frozen=True)
 class ValueForwardStream:
-    """Host-planned posting stream of the value-forward kernel (B4).
+    """Host-planned posting stream of the value-forward kernel (the stream
+    B4).
 
     The query's postings are flattened into one row-sorted (row, query,
     contribution) stream per (query-block, row-block) pair: q_j is

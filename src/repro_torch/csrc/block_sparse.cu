@@ -1,6 +1,9 @@
-// Block-sparse head scoring (K3) and value-forward inverted scoring (B4)
-// for Hopper (sm_90a), kept together as the JAX package keeps their Pallas
-// kernels in one file.
+// Block-sparse head scoring (K3) and value-forward inverted scoring over a
+// host-planned stream (the stream B4) for Hopper (sm_90a), kept together as
+// the JAX package keeps their Pallas kernels in one file.  The search's
+// inverted scoring is B4 as redesigned for Hopper, csrc/score_inverted.cu,
+// which needs no plan; the stream B4 is the port of the TPU layout, kept
+// and held against its plain version, off every search.
 //
 // ---------------------------------------------------------------------------
 // K3
@@ -297,7 +300,7 @@ using K3Small = K3Shape<8, 2, 3>;
 using K3Large = K3Shape<2, 4, 2>;
 
 // ---------------------------------------------------------------------------
-// B4: inverted_value_forward_kernel
+// The stream B4: inverted_value_forward_kernel
 //
 // Replaces the Pallas TPU kernel repro/kernels/block_sparse.py:
 // inverted_value_forward_pallas (body _vf_kernel).

@@ -1,15 +1,17 @@
 """Block-sparse scoring on Hopper: BCSR conversion and the launchers of K3
-and B4.
+and the stream B4.
 
 K3 (``csrc/block_sparse.cu:block_sparse_kernel``) replaces
 ``repro/kernels/block_sparse.py:block_sparse_matmul_pallas``: ``q @ X^T``
 over the nonzero 128 x 128 tiles of the cache-sorted head block, in BCSR
 order, on the tensor cores as 3xTF32.  Zero tiles are never read.
 
-B4 (``csrc/block_sparse.cu:inverted_value_forward_kernel``) replaces
-``repro/kernels/block_sparse.py:inverted_value_forward_pallas``: it
-accumulates a host-planned, row-sorted (row, query, contribution) stream
-into (Q, N) sparse scores.
+The stream B4 (``csrc/block_sparse.cu:inverted_value_forward_kernel``) is
+the port of ``repro/kernels/block_sparse.py:inverted_value_forward_pallas``
+in the JAX package's layout: it accumulates a host-planned, row-sorted
+(row, query, contribution) stream into (Q, N) sparse scores.  No search
+takes it; B4 as redesigned for Hopper, which reads the index itself, is
+``kernels/inverted.py``.
 
 What bounds each and what its design does about it is noted in the CUDA
 source.
@@ -96,7 +98,7 @@ def inverted_value_forward_cuda(ptr: torch.Tensor, rows: torch.Tensor,
                                 qidx: torch.Tensor, contrib: torch.Tensor, *,
                                 bq: int, bn: int, chunk: int,
                                 num_row_blocks: int) -> torch.Tensor:
-    """Launch B4: the stream (ptr, rows, qidx, contrib) ->
+    """Launch the stream B4: the stream (ptr, rows, qidx, contrib) ->
     (QB * bq, num_row_blocks * bn) f32."""
     lib = _build.load("block_sparse", _SIGNATURES)
     qb, p_pad = rows.shape

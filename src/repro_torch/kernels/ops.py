@@ -1,4 +1,4 @@
-"""Public wrappers around the four kernels (counterpart of
+"""Public wrappers around the kernels (counterpart of
 ``repro/kernels/ops.py``).
 
 The rule for every wrapper: a CPU tensor takes the plain PyTorch version
@@ -19,12 +19,13 @@ import torch
 
 from .block_sparse import (TILE, block_sparse_cuda, dense_to_bcsr,
                            inverted_value_forward_cuda)
+from .inverted import WINDOW, plan_score_inverted, score_inverted_cuda
 from .lut16 import (LUT_WIDTH, SMEM_PER_CTA, THREADS, candidate_buffer_width,
                     lut16_adc_cuda, lut16_adc_topk_cuda, pack_codes, plan_adc,
                     topk_ctas_per_sm, topk_smem_bytes, unpack_codes)
 from .ref import (PLAIN_CALLS, block_sparse_plain, bump,
                   inverted_value_forward_plain, lut16_adc_plain,
-                  lut16_adc_topk_plain, stable_topk)
+                  lut16_adc_topk_plain, score_inverted_plain, stable_topk)
 
 __all__ = ["lut16_adc", "lut16_adc_topk", "lut16_adc_onehot",
            "block_sparse_matmul_bcsr", "bcsr_from_head",
@@ -42,7 +43,7 @@ _MAX_GRID_Y = 65535
 
 LAUNCHES = dict.fromkeys(
     ("lut16_adc", "lut16_adc_topk", "block_sparse_matmul",
-     "inverted_value_forward"), 0)
+     "inverted_value_forward", "score_inverted_vf"), 0)
 
 
 def reset_counts() -> None:
@@ -264,8 +265,10 @@ def inverted_value_forward(ptr: torch.Tensor, rows: torch.Tensor,
                            qidx: torch.Tensor, contrib: torch.Tensor, *,
                            bq: int, bn: int, chunk: int,
                            num_row_blocks: int) -> torch.Tensor:
-    """Accumulate a value-forward stream into (QB * bq, num_row_blocks * bn)
-    f32 scores.  On CUDA this launches B4."""
+    """Accumulate a value-forward stream (``build_value_forward_stream``, the
+    JAX package's host-planned layout) into (QB * bq, num_row_blocks * bn)
+    f32 scores.  On CUDA this launches the stream B4, which no search
+    takes: ``score_inverted_vf`` computes the same from the index."""
     kw = dict(bq=bq, bn=bn, chunk=chunk, num_row_blocks=num_row_blocks)
     if not rows.is_cuda:
         return inverted_value_forward_plain(ptr, rows, qidx, contrib, **kw)
@@ -288,18 +291,47 @@ def inverted_value_forward(ptr: torch.Tensor, rows: torch.Tensor,
     return out
 
 
-def score_inverted_vf(index, q_dims, q_vals, *, bq: int = 8, bn: int = 512,
-                      chunk: int = 128) -> torch.Tensor:
-    """Value-forward inverted-index scoring (SINDI-style; DESIGN.md §2.5):
-    plans a row-sorted (row, query, contribution) stream per (query-block,
-    row-block) on the host, then accumulates it (B4 on CUDA).  Equals
-    ``core.sparse_index.score_inverted`` on the same ``PaddedInvertedIndex``
-    bit for bit.  The plan depends on the queries' nonzeros, so this is a
-    standalone op, not a step of the three-pass search.  Returns (Q, N)."""
-    from ..core.sparse_index import build_value_forward_stream
-    st = build_value_forward_stream(index, q_dims, q_vals, bq=bq, bn=bn,
-                                    chunk=chunk)
-    out = inverted_value_forward(st.ptr, st.rows, st.qidx, st.contrib,
-                                 bq=st.bq, bn=st.bn, chunk=st.chunk,
-                                 num_row_blocks=st.num_row_blocks)
-    return out[:st.num_queries, :st.num_points]
+def score_inverted_vf(index, q_dims: torch.Tensor,
+                      q_vals: torch.Tensor) -> torch.Tensor:
+    """The inverted-index tail of the pass-1 bias,
+    ``core.sparse_index.score_inverted(index, q_dims, q_vals)``, bit for bit:
+    index a ``PaddedInvertedIndex`` (rows (d, L) int32 with the sentinel N,
+    vals (d, L) f32), q_dims (Q, nq) compact ids (pad: any id outside
+    [0, d)), q_vals (Q, nq).  Returns (Q, N) f32.
+
+    On CUDA this launches B4 once, with no host planning and no host sync,
+    into a contiguous output at ``plan_score_inverted``'s geometry.  q_dims
+    other than int32 / int64 are widened and q_vals rounded to f32 first, as
+    ``score_inverted`` does."""
+    rows, vals, n = index.rows, index.vals, index.num_points
+    if not rows.is_cuda:
+        return score_inverted_plain(index, q_dims, q_vals)
+    if rows.dtype != torch.int32 or vals.dtype != torch.float32:
+        raise TypeError(f"B4 takes int32 rows and f32 vals, got {rows.dtype} "
+                        f"and {vals.dtype}")
+    if rows.ndim != 2 or vals.shape != rows.shape:
+        raise ValueError(f"rows {tuple(rows.shape)} and vals "
+                         f"{tuple(vals.shape)} must be one (d, L) shape")
+    if q_dims.ndim != 2 or q_vals.shape != q_dims.shape:
+        raise ValueError(f"q_dims {tuple(q_dims.shape)} and q_vals "
+                         f"{tuple(q_vals.shape)} must be one (Q, nq) shape")
+    for name, t in (("vals", vals), ("q_dims", q_dims), ("q_vals", q_vals)):
+        if t.device != rows.device:
+            raise ValueError(f"{name} on {t.device}, rows on {rows.device}")
+    if not (rows.is_contiguous() and vals.is_contiguous()):
+        raise ValueError("the inverted index must be contiguous")
+    d, l = rows.shape
+    qn = q_dims.shape[0]
+    if n >= 2 ** 31 or l * WINDOW >= 2 ** 31:
+        raise ValueError(f"B4 indexes N = {n} rows and a window of {WINDOW} "
+                         f"lists of L = {l} in int32")
+    if q_dims.dtype not in (torch.int32, torch.int64):
+        q_dims = q_dims.long()
+    q_dims, q_vals = q_dims.contiguous(), q_vals.float().contiguous()
+    if qn == 0 or n == 0:
+        return torch.empty((qn, n), dtype=torch.float32, device=rows.device)
+    out = score_inverted_cuda(rows, vals, q_dims, q_vals, n,
+                              plan_score_inverted(qn, n,
+                                                  _sm_count(rows.device)))
+    bump(LAUNCHES, "score_inverted_vf")
+    return out

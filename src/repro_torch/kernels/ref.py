@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four kernels.
+"""Plain PyTorch versions of the kernels.
 
 Each computes what its CUDA kernel computes, on any device.  The wrappers in
 ``kernels/ops.py`` run them for CPU tensors; on the card they serve only as
@@ -10,9 +10,10 @@ servers search from one thread per connection.
 ``lut16_adc_plain`` adds the subspace terms in the kernels' order
 (k = 0..K-1, starting from +0), so on the same inputs it matches K1 bit for
 bit.  ``inverted_value_forward_plain`` takes each (query, row) sum in
-stream order from +0, as B4 does, so it matches B4 (and the port's
-``score_inverted``) bit for bit.  ``tf32_split`` is K3's operand split,
-done on the f32 bits as ``cvt.rna.tf32.f32`` does it.
+stream order from +0, as the stream B4 does, so it matches that kernel (and
+the port's ``score_inverted``) bit for bit; ``score_inverted_plain`` is
+``score_inverted`` itself, B4's plain version.  ``tf32_split`` is K3's
+operand split, done on the f32 bits as ``cvt.rna.tf32.f32`` does it.
 """
 
 from __future__ import annotations
@@ -24,12 +25,13 @@ import torch
 from .lut16 import unpack_codes
 
 __all__ = ["lut16_adc_plain", "lut16_adc_topk_plain", "block_sparse_plain",
-           "inverted_value_forward_plain", "stable_topk", "tf32_split",
+           "inverted_value_forward_plain", "score_inverted_plain",
+           "stable_topk", "tf32_split",
            "PLAIN_CALLS", "bump"]
 
 PLAIN_CALLS = dict.fromkeys(
     ("lut16_adc", "lut16_adc_topk", "block_sparse_matmul",
-     "inverted_value_forward"), 0)
+     "inverted_value_forward", "score_inverted_vf"), 0)
 
 _COUNT_LOCK = threading.Lock()
 
@@ -167,3 +169,13 @@ def inverted_value_forward_plain(ptr: torch.Tensor, rows: torch.Tensor,
         sel = rank == k
         out.scatter_add_(0, key[sel], val[sel])
     return out.reshape(qb * bq, width)
+
+
+def score_inverted_plain(index, q_dims: torch.Tensor,
+                         q_vals: torch.Tensor) -> torch.Tensor:
+    """B4's plain version: ``core.sparse_index.score_inverted`` itself, one
+    scatter-add per query slot into zeros, so each (query, row) sum is
+    taken in (slot, list position) order from +0, the order B4 keeps."""
+    from ..core.sparse_index import score_inverted
+    bump(PLAIN_CALLS, "score_inverted_vf")
+    return score_inverted(index, q_dims, q_vals)

@@ -251,7 +251,7 @@ def test_node_replies_carry_reference_types(env):
         assert st["device"] == "cpu" and st["kernels_built"] == []
         assert set(st["kernel_launches"]) == {
             "lut16_adc", "lut16_adc_topk", "block_sparse_matmul",
-            "inverted_value_forward"}
+            "inverted_value_forward", "score_inverted_vf"}
         assert sum(st["kernel_launches"].values()) == 0   # the CPU path
         assert st["score_s_p50"] > 0
     finally:

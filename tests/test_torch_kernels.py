@@ -18,6 +18,7 @@ from repro.kernels import ops as jops
 from repro.kernels.block_sparse import dense_to_bcsr as jax_dense_to_bcsr
 from repro.kernels.lut16 import pack_codes as jax_pack
 from repro.kernels.lut16 import unpack_codes as jax_unpack
+from repro_torch.core.sparse_index import PaddedInvertedIndex
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.block_sparse import dense_to_bcsr
 
@@ -220,6 +221,10 @@ def test_cpu_tensors_take_plain_versions():
     ops.inverted_value_forward(torch.tensor([0, 1], dtype=torch.int32),
                                stream, stream, torch.ones((1, 4)), bq=1, bn=4,
                                chunk=4, num_row_blocks=1)
+    inv = PaddedInvertedIndex(rows=torch.tensor([[0, 2, 3]], dtype=torch.int32),
+                              vals=torch.ones((1, 3)), num_points=3)
+    ops.score_inverted_vf(inv, torch.zeros((2, 1), dtype=torch.int32),
+                          torch.ones((2, 1)))
     assert all(v == 0 for v in ops.LAUNCHES.values())
     assert all(v == 1 for v in ref.PLAIN_CALLS.values())
     ops.reset_counts()

@@ -1,13 +1,18 @@
-"""The port's value-forward sparse scoring (repro_torch.kernels.ops.
-score_inverted_vf and its planner) against the JAX package's, on the CPU.
+"""The port's value-forward sparse scoring against the JAX package's, on
+the CPU: repro_torch.kernels.ops.score_inverted_vf, and the stream it was
+first ported as (the planner ``build_value_forward_stream`` and the stream
+op ``ops.inverted_value_forward``).
 
 The planner is a numpy copy, so its arrays must equal the JAX planner's
 exactly.  The JAX kernel runs in Pallas interpret mode (as
 tests/test_kernels.py runs it) and sums a chunk at a time on its one-hot
 product: rtol 1e-5, atol 1e-5, the JAX package's own tolerance against
-``score_inverted``.  The port's plain version takes each (query, row) sum
-in slot order, as the port's ``score_inverted`` does, so those two must be
-equal bit for bit (B4 is held to the same on the card by chip_smoke.py)."""
+``score_inverted``.  The port's ``score_inverted_vf`` takes each (query,
+row) sum in slot order, as the port's ``score_inverted`` does (on CPU
+tensors it is that function), so those two must be equal bit for bit; so
+must the planned stream through the stream op's plain version, which sums
+in stream order (both kernels are held to the same on the card by
+chip_smoke.py)."""
 
 import numpy as np
 import pytest
@@ -43,10 +48,21 @@ def _problem(n, d, qn, *, seed, nq_max=32):
 
 
 def _vf_both(jinv, inv, qd, qv):
+    """The JAX op, the port's op and its stream, each held to the JAX op
+    within 1e-5 and to the port's ``score_inverted`` bit for bit; returns
+    the port's op, the JAX op and ``score_inverted``."""
     want = np.asarray(jax_score_inverted_vf(jinv, qd, qv))
     got = ops.score_inverted_vf(inv, torch.from_numpy(qd),
                                 torch.from_numpy(qv))
     si = score_inverted(inv, torch.from_numpy(qd), torch.from_numpy(qv))
+    st = build_value_forward_stream(inv, qd, qv)
+    streamed = ops.inverted_value_forward(
+        st.ptr, st.rows, st.qidx, st.contrib, bq=st.bq, bn=st.bn,
+        chunk=st.chunk, num_row_blocks=st.num_row_blocks)
+    streamed = streamed[:st.num_queries, :st.num_points]
+    assert tuple(streamed.shape) == want.shape
+    np.testing.assert_allclose(streamed.numpy(), want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(streamed, si)
     return got, want, si
 
 
@@ -77,8 +93,10 @@ def test_score_inverted_vf_matches_jax(n, d, qn):
     jinv, inv, qd, qv = _problem(n, d, qn, seed=n)
     ops.reset_counts()
     got, want, si = _vf_both(jinv, inv, qd, qv)
+    assert ref.PLAIN_CALLS["score_inverted_vf"] == 1
     assert ref.PLAIN_CALLS["inverted_value_forward"] == 1
-    assert ops.LAUNCHES["inverted_value_forward"] == 0      # CPU: plain
+    assert ops.LAUNCHES["score_inverted_vf"] == 0           # CPU: plain
+    assert ops.LAUNCHES["inverted_value_forward"] == 0
     assert tuple(got.shape) == want.shape == (qn, n)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
     assert torch.equal(got, si)
