@@ -19,11 +19,14 @@ through a ragged stream, mutations, two compactions, healed frame faults,
 a scorer kill and a failover, and to exact search by recall (phase
 ``cluster``) — ``python -m
 repro_torch.launch.serve --retrieval`` plain, durable and restored, and
-``--role router`` (phase ``launch``), and the store the JAX
+``--role router`` (phase ``launch``), the PQ LM head at the qwen2-7b,
+qwen2.5-14b and deepseek-67b widths on random weights, K1 at K = d/2
+(phase ``lm_head``), and the store the JAX
 package wrote (``tests/data/reference_store``) recovered on the card and
 held to the reference's results (phase ``reference_store``).  It holds
 every kernel against its plain PyTorch version on the card, at the
-slice's shapes and at those the cluster's nodes give it (phases
+slice's shapes, at those the cluster's nodes give it and, for K1 and K2,
+at K up to 8192 (phases
 ``kernels_checked``, ``score_inverted_vf`` — B4, the pass-1 tail bias,
 which every search path launches, timed beside the plain route — and
 ``value_forward``, the JAX layout's stream kernel, off every path).  Each
@@ -469,14 +472,15 @@ def edge_cases_k1(torch, ops, ref) -> dict:
                                             plan=plan)
         else:
             check(plan.ctas_per_sm == lut16.adc_ctas_per_sm(
-                plan.bq, packed, kc, kl, plan.threads),
+                plan.bq, packed, kc, kl, plan.threads, plan.chunk),
                 f"K1 plan at {(n, k_sub, q, packed)}: CTAs per SM differ "
                 "from the occupancy calculator's")
 
             def run():
                 return ops.lut16_adc(stored, lut, packed=packed)
         check(plan.smem_bytes == lut16.adc_smem_bytes_cuda(
-            plan.bq, kc, kl, plan.threads), "K1 shared memory: Python != C")
+            plan.bq, kc, kl, plan.threads, plan.chunk),
+            "K1 shared memory: Python != C")
         got = run()
         shape = (n, k_sub, q, packed, explicit)
         check(torch.equal(got, want), f"K1 != plain at {shape}")
@@ -578,6 +582,143 @@ def edge_cases_k2_threshold(torch, ops, ref) -> dict:
         run("k_equals_n", small, lut, 1000, None, mask, packed)
     counts["total"] = sum(counts.values())
     return counts
+
+
+WIDE_KS = (694, 718, 1152, 1194, 1792, 2046, 2048, 2560, 4095, 4096, 8192)
+
+
+def edge_cases_wide_k(torch, ops, ref) -> dict:
+    """K1 and K2 at K whose whole LUT image leaves them too few warps an
+    SM or does not fit (``WIDE_KS``, up to 8192), unpacked and packed (odd
+    K packed: its phantom column), Q = 1, 8, 33, N = 3001 and 152064; K2 at
+    k = 20, 500, 1024 with a (Q, N) bias and a row mask (a third of the
+    rows at -inf).  K1 equals ``lut16_adc_plain`` bit for bit; K2's scores
+    and ids equal the plain selection bit for bit (``lut16_adc_topk_plain``
+    at N = 3001; at N = 152064 the same stable sort of the bias, the mask
+    and K1's plain scores, which are already at hand); every launch equals
+    its second.  Each case reports its plans: chunks, bq, threads and
+    warps an SM (at least 8).  Both planners' CTAs an SM equal the
+    occupancy calculator's, the C side's shared memory equals the
+    mirrors', and K2's op launches the plan ``plan_topk`` makes.  At N =
+    152064, Q = 33 and K = 1792, 4096, 8192 K1 and K2 (k = 500) are timed
+    beside their bounds (``timed``)."""
+    from repro_torch.kernels import lut16
+    g = torch.Generator(device="cuda").manual_seed(21)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    t0 = time.perf_counter()
+    shapes, timed = [], []
+    for k_sub in WIDE_KS:
+        for packed in (False, True):
+            kc = -(-k_sub // 2) if packed else k_sub
+            for n in (3001, 152064):
+                stored = torch.randint(0, 256 if packed else 16, (n, kc),
+                                       generator=g, device="cuda",
+                                       dtype=torch.uint8)
+                if packed and k_sub % 2:
+                    stored[:, -1] &= 0x0F      # pack_codes' zero pad nibble
+                for q in (1, 8, 33):
+                    where = f"K = {k_sub}, packed = {packed}, N = {n}, Q = {q}"
+                    lut = torch.randn((q, k_sub, 16), generator=g,
+                                      device="cuda")
+                    lut_p = ops._validate_packed(kc, k_sub, 16, lut,
+                                                 packed).contiguous()
+                    kl = lut_p.shape[1]
+                    plan = lut16.plan_adc(q, n, kc, kl, sms, packed)
+                    ctas = lut16.adc_ctas_per_sm(plan.bq, packed, kc, kl,
+                                                 plan.threads, plan.chunk)
+                    check(ctas == plan.ctas_per_sm,
+                          f"K1 plan at {where}: {plan.ctas_per_sm} CTAs an "
+                          f"SM, the occupancy calculator {ctas}")
+                    check(plan.smem_bytes == lut16.adc_smem_bytes_cuda(
+                        plan.bq, kc, kl, plan.threads, plan.chunk),
+                        f"K1 shared memory at {where}: Python != C")
+                    check(ctas * plan.threads // 32 >= 8,
+                          f"K1 plan at {where}: fewer than 8 warps an SM")
+                    want = ref.lut16_adc_plain(stored, lut_p, packed=packed)
+                    got = ops.lut16_adc(stored, lut, packed=packed)
+                    check(torch.equal(got, want), f"K1 != plain at {where}")
+                    check(torch.equal(got, ops.lut16_adc(stored, lut,
+                                                         packed=packed)),
+                          f"K1 at {where}: two launches differ")
+                    del got
+                    bias = torch.randn((q, n), generator=g, device="cuda")
+                    mask = torch.zeros(n, device="cuda")
+                    mask[torch.randperm(n, generator=g, device="cuda")
+                         [:n // 3]] = -torch.inf
+                    base = bias + mask[None]
+                    k2 = []
+                    for kk in (20, 500, 1024):
+                        got = ops.lut16_adc_topk(stored, lut, kk, bias=bias,
+                                                 row_mask=mask, packed=packed)
+                        if n <= 3001:
+                            plain = ref.lut16_adc_topk_plain(
+                                stored, lut_p, base, kk, packed=packed)
+                        else:
+                            plain = ref.stable_topk(base + want, kk)
+                        check(all(torch.equal(a, b) for a, b in zip(
+                            got, ops._normalize(*plain))),
+                            f"K2 != plain at {where}, k = {kk}")
+                        check(all(torch.equal(a, b) for a, b in zip(
+                            got, ops.lut16_adc_topk(stored, lut, kk,
+                                                    bias=bias, row_mask=mask,
+                                                    packed=packed))),
+                              f"K2 at {where}, k = {kk}: two launches differ")
+                        cbuf = ops.candidate_buffer_width(kk)
+                        bq, rows, chunk = ops._resolve_topk_blocks(
+                            q, n, kc, kl, packed, cbuf, stored.device)
+                        tp = lut16.plan_topk(q, kc, kl, cbuf)
+                        check(tp.bq == bq and tp.chunk == chunk,
+                              f"K2 plan at {where}, k = {kk}: the op "
+                              f"launches ({bq}, {chunk}), the planner "
+                              f"({tp.bq}, {tp.chunk})")
+                        check(tp.smem_bytes == lut16.topk_smem_bytes_cuda(
+                            bq, kc, kl, cbuf, chunk),
+                            f"K2 shared memory at {where}: Python != C")
+                        ctas2 = lut16.topk_ctas_per_sm(bq, packed, kc, kl,
+                                                       cbuf, chunk)
+                        check(tp.ctas_per_sm == ctas2,
+                              f"K2 plan at {where}, k = {kk}: "
+                              f"{tp.ctas_per_sm} CTAs an SM, the occupancy "
+                              f"calculator {ctas2}")
+                        check(ctas2 * lut16.THREADS // 32 >= 8,
+                              f"K2 plan at {where}: fewer than 8 warps an SM")
+                        if (n, q, kk) == (152064, 33, 500) and k_sub in (
+                                1792, 4096, 8192):
+                            timed.append({
+                                "k": k_sub, "packed": packed, "n": n, "q": q,
+                                "k1_ms": cuda_ms(lambda: ops.lut16_adc(
+                                    stored, lut, packed=packed), runs=10),
+                                "k2_ms": cuda_ms(lambda: ops.lut16_adc_topk(
+                                    stored, lut, kk, bias=bias, row_mask=mask,
+                                    packed=packed), runs=10),
+                                "k1_bound_ms": max(
+                                    (n * kc + 4 * q * n) / HBM_BYTES_PER_S,
+                                    q * n * k_sub / F32_ADDS_PER_S) * 1e3,
+                                "k2_bound_ms": max(
+                                    (n * kc + 4 * q * n) / HBM_BYTES_PER_S,
+                                    q * n * (k_sub + 1) / F32_ADDS_PER_S)
+                                * 1e3})
+                        k2.append({"k": kk, "bq": bq, "rows_per_cta": rows,
+                                   "chunk": chunk,
+                                   "chunks": -(-kc // (chunk or kc)),
+                                   "smem_bytes": tp.smem_bytes,
+                                   "warps_per_sm": ctas2 * lut16.THREADS
+                                   // 32})
+                    shapes.append({
+                        "k": k_sub, "packed": packed, "n": n, "q": q,
+                        "kc": kc, "k1": {
+                            "bq": plan.bq, "threads": plan.threads,
+                            "chunk": plan.chunk, "chunks": plan.chunks(kc),
+                            "rows_per_cta": plan.rows_per_cta,
+                            "smem_bytes": plan.smem_bytes,
+                            "warps_per_sm": ctas * plan.threads // 32},
+                        "k2": k2})
+                    del want, bias, mask, base
+                del stored
+            torch.cuda.empty_cache()
+    return {"cases": len(shapes), "k2_cases": 3 * len(shapes),
+            "seconds": time.perf_counter() - t0, "timed": timed,
+            "shapes": shapes}
 
 
 def edge_cases_block_sparse(torch, ops, ref):
@@ -765,7 +906,9 @@ def run_kernels(torch, idx, queries, launches, c1):
     from repro_torch.kernels import ref
     from repro_torch.kernels.block_sparse import _smem_bytes
     from repro_torch.kernels.lut16 import (adc_ctas_per_sm, plan_adc,
-                                           topk_ctas_per_sm, topk_smem_bytes)
+                                           plan_topk, topk_ctas_per_sm,
+                                           topk_smem_bytes,
+                                           topk_smem_bytes_cuda)
 
     arrays = idx.engine.arrays
     q_dims, q_vals, q_dense = queries
@@ -821,6 +964,7 @@ def run_kernels(torch, idx, queries, launches, c1):
                 "bound_ms": k1_bound(qn, nn), "max_abs_err": max_abs(got,
                                                                       want),
                 "plan": {"bq": plan.bq, "threads": plan.threads,
+                         "chunk": plan.chunk,
                          "rows_per_cta": plan.rows_per_cta,
                          "grid": plan.grid(qn, nn),
                          "smem_bytes": plan.smem_bytes,
@@ -837,6 +981,8 @@ def run_kernels(torch, idx, queries, launches, c1):
     k1_plan = k1_by_q[str(nq)]["plan"]
     check(k1_plan["ctas_per_sm"] == k1_plan["ctas_per_sm_cuda"],
           "K1's plan and the occupancy calculator disagree")
+    check(all(r["plan"]["chunk"] is None for r in k1_by_q.values()),
+          "K1 at the slice shapes does not plan its whole LUT image")
     k1_bytes = n * kc + 4 * nq * n
     k1_ops = nq * n * k_sub
 
@@ -850,6 +996,15 @@ def run_kernels(torch, idx, queries, launches, c1):
     check(all(torch.equal(a, b) for a, b in zip(
         (s, i), ops.lut16_adc_topk(codes, lut, c1, bias=bias))),
         "K2: two launches at the slice shapes differ")
+    # the fused pass 1 produces no f32 (Q > 1, >= N) tensor; the
+    # materialising route does (the reference's structural check)
+    fused_writes = ops.dense_scores_materialized(
+        lambda c, lq: ops.lut16_adc_topk(c, lq, c1), codes, lut)
+    route_writes = ops.dense_scores_materialized(
+        lambda c, lq: ops.lut16_adc_topk(c, lq, c1, fused=False), codes, lut)
+    check(not fused_writes and route_writes,
+          "dense_scores_materialized: fused "
+          f"{fused_writes}, materialised {route_writes}")
     k2 = dict(ms=cuda_ms(lambda: ops.lut16_adc_topk(codes, lut, c1, bias=bias)),
               plain_ms=cuda_ms(lambda: ref.lut16_adc_topk_plain(codes, lut,
                                                                 bias, c1)),
@@ -873,13 +1028,23 @@ def run_kernels(torch, idx, queries, launches, c1):
             "bound_ms": max(k2_bytes(qn) / HBM_BYTES_PER_S,
                             k2_ops(qn) / F32_ADDS_PER_S) * 1e3}
     cbuf = ops.candidate_buffer_width(c1)
-    bq_k2, rows_k2 = ops._resolve_topk_blocks(nq, n, kc, k_sub, False, cbuf,
-                                              codes.device)
+    bq_k2, rows_k2, chunk_k2 = ops._resolve_topk_blocks(
+        nq, n, kc, k_sub, False, cbuf, codes.device)
+    tp_k2 = plan_topk(nq, kc, k_sub, cbuf)
+    check(chunk_k2 is None and tp_k2.chunk is None and tp_k2.bq == bq_k2,
+          "K2 at the slice shapes does not plan its whole LUT image")
+    check(tp_k2.ctas_per_sm == topk_ctas_per_sm(bq_k2, False, kc, k_sub,
+                                                cbuf),
+          "K2's plan and the occupancy calculator disagree at the slice "
+          "shapes")
+    check(topk_smem_bytes(bq_k2, kc, k_sub, cbuf) == topk_smem_bytes_cuda(
+        bq_k2, kc, k_sub, cbuf), "K2 shared memory: Python != C")
     k2_extra = {
         "materialised_ms": k2_by_q[str(nq)]["materialised_ms"],
         "by_q": k2_by_q,
         "ptxas": {
-            "dynamic_smem_bytes": topk_smem_bytes(bq_k2, kc, k_sub, cbuf),
+            "dynamic_smem_bytes": topk_smem_bytes_cuda(bq_k2, kc, k_sub,
+                                                       cbuf),
             "ctas_per_sm": topk_ctas_per_sm(bq_k2, False, kc, k_sub, cbuf),
             "bq": bq_k2, "rows_per_cta": rows_k2,
             "ranges": -(-n // rows_k2),
@@ -937,6 +1102,7 @@ def run_kernels(torch, idx, queries, launches, c1):
     edge_lut = edge_cases_lut16(torch, ops, ref)
     edge_k1 = edge_cases_k1(torch, ops, ref)
     edge_k2 = edge_cases_k2_threshold(torch, ops, ref)
+    edge_wide = edge_cases_wide_k(torch, ops, ref)
     edge_bs = edge_cases_block_sparse(torch, ops, ref)
     cluster_shapes = cluster_kernel_shapes(torch, ops, ref, arrays, queries,
                                            c1)
@@ -971,7 +1137,9 @@ def run_kernels(torch, idx, queries, launches, c1):
                                           "k": c1, "tiles": t_real,
                                           "N_pad": n_pad},
          edge_cases_lut16=edge_lut, edge_cases_k1=edge_k1,
-         edge_cases_k2_threshold=edge_k2,
+         edge_cases_k2_threshold=edge_k2, edge_cases_wide_k=edge_wide,
+         dense_scores_materialized={"fused": fused_writes,
+                                    "materialised": route_writes},
          edge_cases_block_sparse=len(edge_bs),
          block_sparse_cases=edge_bs, cluster_shapes=cluster_shapes,
          tolerance={"rtol": RTOL, "atol": ATOL})
@@ -2859,6 +3027,185 @@ def run_reference_store(torch):
          replayed=rec.replayed, queries=int(q.shape[0]), results=out)
 
 
+# ---------------------------------------------------------------------------
+# lm_head: the PQ LM head (serve/hybrid_head.py) at published widths, K1 at
+# the head's K through its wide variant
+# ---------------------------------------------------------------------------
+
+# (name, d_model, vocab): the published widths of three configs the JAX
+# package ships (src/repro/configs/); K = d / 2 subspaces of l = 16
+LM_HEADS = (("qwen2-7b", 3584, 152064), ("qwen2.5-14b", 5120, 152064),
+            ("deepseek-67b", 8192, 102400))
+LM_BATCHES = (1, 8, 32)
+
+
+def head_k1_reading(torch, ops, ref, hp, lut, sms) -> dict:
+    """K1 on the head's codes and a batch's LUT, bit for bit with its plain
+    version; ms beside its bound, the plain version (one call) and
+    ``embedding_bag`` (mode sum over the (subspace, code) rows of the
+    (Q, K * 16) LUT); the plan with the occupancy calculator's CTAs."""
+    from repro_torch.kernels import lut16
+    codes, packed = hp.codes, hp.codes_packed
+    qn, k_sub, _ = lut.shape
+    nn, kc = codes.shape
+    lut_p = ops._validate_packed(kc, k_sub, 16, lut, packed).contiguous()
+    got = ops.lut16_adc(codes, lut, packed=packed)
+    # the plain version (K launches of gathers) is timed on this one call
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    want = ref.lut16_adc_plain(codes, lut_p, packed=packed)
+    t1.record()
+    t1.synchronize()
+    check(torch.equal(got, want), f"K1 != plain on the head, Q = {qn}")
+    unpacked = ops.unpack_codes(codes, k_sub) if packed else codes
+    e_idx = unpacked.long() + 16 * torch.arange(k_sub, device="cuda")
+    e_w = lut.permute(1, 2, 0).reshape(k_sub * 16, qn).contiguous()
+
+    def bag():
+        return torch.nn.functional.embedding_bag(e_idx, e_w, mode="sum")
+
+    assert_close(bag().T, want, "embedding_bag yardstick")
+    plan = lut16.plan_adc(qn, nn, kc, lut_p.shape[1], sms, packed)
+    ctas = lut16.adc_ctas_per_sm(plan.bq, packed, kc, lut_p.shape[1],
+                                 plan.threads, plan.chunk)
+    check(ctas == plan.ctas_per_sm, "K1 head plan: CTAs differ from the "
+          "occupancy calculator's")
+    out = {"ms": cuda_ms(lambda: ops.lut16_adc(codes, lut, packed=packed)),
+           "plain_ms": t0.elapsed_time(t1),
+           "library_ms": cuda_ms(bag),
+           "bound_ms": max((nn * kc + 4 * qn * nn) / HBM_BYTES_PER_S,
+                           qn * nn * k_sub / F32_ADDS_PER_S) * 1e3,
+           "max_abs_err": max_abs(got, want),
+           "plan": {"bq": plan.bq, "threads": plan.threads,
+                    "chunk": plan.chunk, "chunks": plan.chunks(kc),
+                    "rows_per_cta": plan.rows_per_cta,
+                    "smem_bytes": plan.smem_bytes,
+                    "warps_per_sm": ctas * plan.threads // 32}}
+    out["bound_by"] = ("bytes" if (nn * kc + 4 * qn * nn) / HBM_BYTES_PER_S
+                       >= qn * nn * k_sub / F32_ADDS_PER_S else "operations")
+    return out
+
+
+def run_lm_head(torch) -> dict:
+    """The PQ LM head at ``LM_HEADS``' widths, random weights from a seeded
+    ``torch.Generator`` on the card, built and served on ``cuda`` and on
+    ``cuda-packed``: build seconds by stage; ``approx_topk`` (k = 50,
+    alpha = 8) at B = 1, 8, 32, f32 and with the bf16 pass 3, against
+    ``exact_topk`` in f32 (medians of CUDA-event readings); K1 at each
+    shape (``head_k1_reading``); top-1 agreement and recall@50 against
+    ``exact_topk`` at B = 32; ``max_memory_allocated``.  Fails unless each
+    ``approx_topk`` launches K1 exactly once and nothing else, returns the
+    ``ref`` backend's ids on the same params (f32, B = 8; scores within
+    rtol / atol), and ``approx_topk_bucketed`` returns ``approx_topk``'s
+    results on ragged batches (ids up to ties within rtol / atol: padding
+    changes the batch, and scores depend in their last bits on it).  Each
+    head is freed before the next is built.  Returns K1's launches."""
+    import math
+    import types
+
+    from repro_torch.core.pq import adc_lut
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.ref import PLAIN_CALLS
+    from repro_torch.serve import HybridLMHead
+    f32 = types.SimpleNamespace(dtype="float32")
+    bf16 = types.SimpleNamespace(dtype="bfloat16")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    k, alpha = 50, 8
+    heads, launches = {}, 0
+    for name, d, v in LM_HEADS:
+        g = torch.Generator(device="cuda").manual_seed(d)
+        lm_head = torch.randn((d, v), generator=g, device="cuda") / math.sqrt(d)
+        hidden = torch.randn((max(LM_BATCHES), d), generator=g,
+                             device="cuda")
+        ragged = torch.randn((40, d), generator=g, device="cuda")
+        row = {"d": d, "V": v, "K": d // 2}
+        t_head = time.perf_counter()
+        for backend in ("cuda", "cuda-packed"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            head = HybridLMHead(f32, backend=backend)
+            t0 = time.perf_counter()
+            hp = head.build(lm_head, device="cuda")
+            build_s = time.perf_counter() - t0
+            where = f"{name} on {backend}"
+            # the main path: one approx_topk, every count at zero before it
+            ops.reset_counts()
+            s, i = head.approx_topk(hp, hidden, None, k, alpha)
+            torch.cuda.synchronize()
+            got = dict(ops.LAUNCHES)
+            check(got["lut16_adc"] == 1 and sum(got.values()) == 1
+                  and sum(PLAIN_CALLS.values()) == 0,
+                  f"{where}: approx_topk launched {got}, plain "
+                  f"{dict(PLAIN_CALLS)}")
+            launches += got["lut16_adc"]
+            check(tuple(i.shape) == (max(LM_BATCHES), k)
+                  and bool(torch.isfinite(s).all())
+                  and bool(((i >= 0) & (i < v)).all()),
+                  f"{where}: approx_topk is not finite ({max(LM_BATCHES)}, "
+                  f"{k}) ids of the vocabulary")
+            # the ref backend on the same params (its scan gathers a
+            # (B, V, K) f32 block: B = 8)
+            cs, ci = head.approx_topk(hp, hidden[:8], None, k, alpha)
+            rs, ri = HybridLMHead(f32, backend="ref").approx_topk(
+                hp, hidden[:8], None, k, alpha)
+            check(torch.equal(ci, ri), f"{where}: ids != the ref backend's")
+            ref_err = assert_close(cs, rs, f"{where}: scores vs ref")
+            ties = 0
+            for b in (3, 20, 40):
+                want = head.approx_topk(hp, ragged[:b], None, k, alpha)
+                got_b = head.approx_topk_bucketed(hp, ragged[:b], None, k,
+                                                  alpha)
+                ties += topk_ties(got_b[1].cpu().numpy(),
+                                  got_b[0].cpu().numpy(),
+                                  want[1].cpu().numpy(),
+                                  want[0].cpu().numpy(),
+                                  f"{where}: bucketed B = {b}")
+            es, ei = head.exact_topk(hp, hidden, None, k)
+            ids, eids = i.cpu().numpy(), ei.cpu().numpy()
+            quality = {
+                "top1_agreement": float((ids[:, 0] == eids[:, 0]).mean()),
+                "recall_at_50": float(np.mean([
+                    len(set(a.tolist()) & set(e.tolist())) / k
+                    for a, e in zip(ids, eids)]))}
+            head_bf16 = HybridLMHead(bf16, backend=backend)
+            by_b = {}
+            for b in LM_BATCHES:
+                hb = hidden[:b]
+                ops.reset_counts()
+                head.approx_topk(hp, hb, None, k, alpha)
+                torch.cuda.synchronize()
+                check(ops.LAUNCHES["lut16_adc"] == 1,
+                      f"{where}: B = {b} launched K1 "
+                      f"{ops.LAUNCHES['lut16_adc']} times")
+                by_b[str(b)] = {
+                    "approx_ms": cuda_ms(lambda: head.approx_topk(
+                        hp, hb, None, k, alpha)),
+                    "approx_bf16_pass3_ms": cuda_ms(
+                        lambda: head_bf16.approx_topk(hp, hb, None, k,
+                                                      alpha)),
+                    "exact_ms": cuda_ms(lambda: head.exact_topk(
+                        hp, hb, None, k)),
+                    "k1": head_k1_reading(torch, ops, ref, hp,
+                                          adc_lut(hb, hp.codebooks), sms)}
+            row[backend] = {
+                "k1_launches_per_call": 1,
+                "build_s": build_s, "build_stage_s": hp.build_seconds,
+                "codes_bytes": tensor_bytes(hp.codes),
+                "params_device_bytes": tensor_bytes(hp),
+                "ref_max_abs_err": ref_err, "bucketed_tie_swaps": ties,
+                **quality, "by_batch": by_b,
+                "max_memory_allocated": torch.cuda.max_memory_allocated()}
+            del hp, s, i, cs, ci, rs, ri, es, ei
+        heads[name] = row
+        emit("lm_head", config=name, seconds=time.perf_counter() - t_head,
+             **row)
+        del lm_head, hidden, ragged
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=524288,
@@ -2889,7 +3236,6 @@ def main() -> int:
                     if "registers" in ln or "spill" in ln]
              for name, log in info["ptxas"].items()}
     emit("build", seconds=info["seconds"], built=info["built"], ptxas=ptxas)
-
     (idx, ds, queries, launches, c1, res, profiles,
      true_ids) = run_slice(args, torch)
     rows = run_kernels(torch, idx, queries, launches, c1)
@@ -2928,6 +3274,8 @@ def main() -> int:
         r["tables_launches"] = tables[r["name"]]
         r["cluster_launches"] = cluster[r["name"]]
         r["sharded_launches"] = sharded[r["name"]]
+    # the PQ LM head's main path: K1 at the head's K (its wide variant)
+    rows[0]["lm_head_launches"] = run_lm_head(torch)["launches"]
     run_launch()
     run_reference_store(torch)
     emit("total", seconds=time.perf_counter() - t_start)

@@ -26,7 +26,6 @@ scores is unspecified.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import time
 import warnings
@@ -35,7 +34,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ..device import resolve_device
+from ..device import full_f32, resolve_device
 from ..kernels.ref import stable_topk
 from .engine import Backend, adc_scores
 from .pq import adc_lut, pq_encode, train_codebooks
@@ -70,18 +69,6 @@ class BaselineResult:
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-
-
-@contextlib.contextmanager
-def _full_f32():
-    """f32 products stay f32: TF32 off for the duration, whatever the
-    caller set."""
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 class _Window:
@@ -205,7 +192,7 @@ def exact_scores(q_sparse, q_dense, x_sparse, x_dense, *,
     qs = _dense_rows(_upload_csr(q_sparse, dev))
     qd = torch.from_numpy(np.asarray(q_dense, np.float32)).to(dev)
     xd = torch.from_numpy(np.asarray(x_dense, np.float32)).to(dev)
-    with _full_f32():
+    with full_f32():
         return _scores_csr(x_csr, qs) + qd @ xd.T
 
 
@@ -237,7 +224,7 @@ def dense_brute_force(q_sparse, q_dense, x_sparse, x_dense, h: int = 20, *,
     win = _Window(dev)
     xd = _dense_rows(_hybrid_as_sparse(x_sparse, x_dense, device=dev))
     qd = _dense_rows(_hybrid_as_sparse(q_sparse, q_dense, device="cpu"))
-    with win, _full_f32():
+    with win, full_f32():
         scores = qd.to(dev) @ xd.T
         ids, sc = _numpy(*_topk(scores, h))
     return win.result("dense_brute_force", ids, sc)
@@ -350,7 +337,7 @@ def _hamming_index(x_sparse, x_dense, bits: int, seed: int,
     r_s = torch.from_numpy(r_s).to(dev)
     r_d = torch.from_numpy(r_d).to(dev)
     xd = torch.from_numpy(np.asarray(x_dense, np.float32)).to(dev)
-    with _full_f32():
+    with full_f32():
         xp = _upload_csr(x_sparse, dev) @ r_s + xd @ r_d
     med = _median_rows(xp)
     return (r_s, r_d), med, _pack_bits(xp > med)
@@ -367,7 +354,7 @@ def hamming512(q_sparse, q_dense, x_sparse, x_dense, h: int = 20,
     win = _Window(dev)
     (r_s, r_d), med, x_bits = _hamming_index(x_sparse, x_dense, bits, seed,
                                              dev)
-    with _full_f32():
+    with full_f32():
         qp = (_upload_csr(q_sparse, dev) @ r_s
               + torch.from_numpy(np.asarray(q_dense, np.float32)).to(dev) @ r_d)
     x_rows, x_dense_t = _rerank_index(x_sparse, x_dense, dev)

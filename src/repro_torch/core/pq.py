@@ -21,13 +21,19 @@ import numpy as np
 import torch
 
 from ..device import to_numpy
-from ..kernels.lut16 import pack_codes
+from ..kernels.lut16 import pack_codes, unpack_codes
 
 __all__ = [
     "PQCodebooks", "train_codebooks", "pq_encode", "pq_decode", "adc_lut",
     "adc_scores_ref", "ScalarQuant", "scalar_quantize", "scalar_dequantize",
-    "scalar_quantize_rows", "encode_rows", "pack_codes", "whitening_transform",
+    "scalar_quantize_rows", "encode_rows", "pack_codes", "unpack_codes",
+    "whitening_transform",
 ]
+
+# Largest (subspaces or rows, ..., l) f32 block that k-means and encoding
+# build at once: 1 GiB.  A (K, N, 16) distance block at K = 4096 over
+# 65536 sampled rows is 17 GB, so both walk K (or rows) in pieces.
+BLOCK_BYTES = 1 << 30
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,13 +61,36 @@ def _split_subspaces(x: torch.Tensor, k: int) -> torch.Tensor:
     return x.reshape(n, k, d // k)
 
 
+def _lloyd(subs: torch.Tensor, centers: torch.Tensor,
+           iters: int) -> torch.Tensor:
+    """``iters`` Lloyd steps of independent k-means, one per subspace:
+    subs (K, N, p), centers (K, l, p).  An empty cluster keeps its center."""
+    k, n, _ = subs.shape
+    l = centers.shape[1]
+    for _ in range(iters):
+        # (K, N, l) squared distances via ||c||^2 - 2 x.c; x-term constant
+        d2 = ((centers * centers).sum(-1)[:, None, :]
+              - 2.0 * torch.bmm(subs, centers.transpose(1, 2)))
+        assign = d2.argmin(-1)                                    # (K, N)
+        one_hot = torch.zeros((k, n, l), dtype=subs.dtype, device=subs.device)
+        one_hot.scatter_(2, assign[:, :, None], 1.0)
+        counts = one_hot.sum(1)                                   # (K, l)
+        sums = torch.bmm(one_hot.transpose(1, 2), subs)           # (K, l, p)
+        new = sums / counts.clamp_min(1.0)[:, :, None]
+        centers = torch.where((counts > 0)[:, :, None], new, centers)
+    return centers
+
+
 def train_codebooks(x_dense: torch.Tensor, num_subspaces: int,
                     num_codes: int = 16, iters: int = 12, seed: int = 0,
                     sample: int | None = 65536) -> PQCodebooks:
     """Learn K codebooks by independent per-subspace Lloyd's k-means (paper
-    §2.3), all subspaces at once.  Init: ``num_codes`` distinct random
-    points per subspace (at most ``sample`` rows are used), deterministic
-    under ``seed``; an empty cluster keeps its old center."""
+    §2.3), as many subspaces at once as keep the (subspaces, N, l) f32
+    distance block within ``BLOCK_BYTES``.  Init: ``num_codes`` distinct
+    random points per subspace (at most ``sample`` rows are used), all
+    drawn first in subspace order, deterministic under ``seed``; an empty
+    cluster keeps its old center.  The subspaces are independent, so the
+    pieces change no draw."""
     x = x_dense.float()
     gen = torch.Generator().manual_seed(seed)
     if sample is not None and x.shape[0] > sample:
@@ -73,27 +102,21 @@ def train_codebooks(x_dense: torch.Tensor, num_subspaces: int,
     init = torch.stack([torch.randperm(n, generator=gen)[:l]
                         for _ in range(k)]).to(x.device)          # (K, l)
     centers = torch.gather(subs, 1, init[:, :, None].expand(k, l, p))
-    for _ in range(iters):
-        # (K, N, l) squared distances via ||c||^2 - 2 x.c; x-term constant
-        d2 = ((centers * centers).sum(-1)[:, None, :]
-              - 2.0 * torch.bmm(subs, centers.transpose(1, 2)))
-        assign = d2.argmin(-1)                                    # (K, N)
-        one_hot = torch.zeros((k, n, l), dtype=x.dtype, device=x.device)
-        one_hot.scatter_(2, assign[:, :, None], 1.0)
-        counts = one_hot.sum(1)                                   # (K, l)
-        sums = torch.bmm(one_hot.transpose(1, 2), subs)           # (K, l, p)
-        new = sums / counts.clamp_min(1.0)[:, :, None]
-        centers = torch.where((counts > 0)[:, :, None], new, centers)
+    step = max(1, BLOCK_BYTES // (n * l * 4))
+    centers = torch.cat([_lloyd(subs[s:s + step], centers[s:s + step], iters)
+                         for s in range(0, k, step)])
     return PQCodebooks(centers=centers.contiguous())
 
 
 def pq_encode(x_dense: torch.Tensor, codebooks: PQCodebooks,
               chunk: int = 65536) -> torch.Tensor:
     """phi_PQ: (N, d) -> (N, K) uint8 codes (argmin L2 per subspace),
-    ``chunk`` rows at a time to bound the (rows, K, l) distance block."""
+    ``chunk`` rows at a time, fewer where the (rows, K, l) distance block
+    would pass ``BLOCK_BYTES``."""
     c = codebooks.centers                                         # (K, l, p)
     cc = torch.sum(c * c, dim=2)[None]                            # (1, K, l)
     x = x_dense.float()
+    chunk = max(1, min(chunk, BLOCK_BYTES // (c.shape[0] * c.shape[1] * 4)))
     out = torch.empty((x.shape[0], c.shape[0]), dtype=torch.uint8,
                       device=x.device)
     for s in range(0, x.shape[0], chunk):

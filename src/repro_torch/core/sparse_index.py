@@ -30,7 +30,8 @@ __all__ = [
     "CompactColumns", "PaddedInvertedIndex", "TileSparseHead",
     "PaddedSparseRows", "build_compact_columns", "build_padded_inverted_index",
     "build_tile_sparse_head", "build_padded_rows", "sparse_queries_to_padded",
-    "score_inverted", "score_head_ref", "score_rows", "DeltaPostings",
+    "score_inverted", "score_head_ref", "queries_head_dense", "score_rows",
+    "DeltaPostings",
     "ValueForwardStream", "build_value_forward_stream",
 ]
 
@@ -260,6 +261,24 @@ def build_tile_sparse_head(x_compact: sp.csr_matrix, head_dims: np.ndarray,
 def score_head_ref(head: TileSparseHead, q_head: torch.Tensor) -> torch.Tensor:
     """Reference head scoring: (Q, d_head_pad) @ block^T -> (Q, N_pad)."""
     return q_head.float() @ head.block.float().T
+
+
+def queries_head_dense(q_dims: np.ndarray, q_vals: np.ndarray,
+                       head_dims: np.ndarray, d_head_pad: int) -> np.ndarray:
+    """Scatter padded sparse queries into the dense head subspace, on the
+    host as in the JAX package.
+
+    q_dims/q_vals: (Q, nq) compact ids/values; head_dims: (d_head_pad,) compact
+    ids (pad = -1).  Returns (Q, d_head_pad) float32."""
+    lookup = {int(c): i for i, c in enumerate(head_dims) if c >= 0}
+    qn, nq = q_dims.shape
+    out = np.zeros((qn, d_head_pad), np.float32)
+    for i in range(qn):
+        for s in range(nq):
+            pos = lookup.get(int(q_dims[i, s]))
+            if pos is not None:
+                out[i, pos] += q_vals[i, s]
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -61,9 +61,18 @@
 //   does not depend on which CTA published first: repeated launches give the
 //   same bits.
 //
+// Wide K (the reference walks K in blocks on its grid, so it takes any K):
+// where a query block's whole LUT image leaves K1 fewer than 8 warps an SM,
+// or does not fit K2 beside its buffers (K of the PQ LM head, d/2 = 1792 to
+// 4096), the kernels' wide variants stage the image and the codes in
+// chunks of cw code bytes' subspaces.  K1 walks its row range once per
+// chunk and carries each (query, row) partial sum in `out`; K2 takes each
+// 256-row chunk's sum chunk by chunk in registers before it selects.
+// Shapes whose image fits as before keep the kernels and plans above.
+//
 // Exactness rules: f32 accumulation in subspace order k = 0..K-1 (shared by
-// K1 and K2 through score_row, so fused and materialised pass 1 agree bit for
-// bit), no fast-math, no tensor cores.
+// K1 and K2 through add_row, so fused and materialised pass 1 agree bit for
+// bit, chunked or not), no fast-math, no tensor cores.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -111,18 +120,22 @@ __host__ __device__ inline int lut_image_index(int qi, int k, int c) {
   return ((k * (BQ / QV) + qi / QV) * kLutWidth + c) * QV + qi % QV;
 }
 
-// Copy the LUTs of queries [q0, q0 + BQ) into the image; queries past the
-// end read as zeros (their sums are computed and never stored).  The reads
-// follow the LUT's own (query, k, code) order, so they coalesce.
+// Copy subspaces [k0, k0 + kl) of the LUTs of queries [q0, q0 + BQ) into
+// the image (kl_src: the LUT's subspaces a query; the whole LUT is k0 = 0,
+// kl = kl_src); queries past the end read as zeros (their sums are computed
+// and never stored).  The reads follow the LUT's own (query, k, code) order,
+// so they coalesce.
 template <int BQ, int QV>
-__device__ void load_lut(const float* __restrict__ lut, int q, int kl, int q0,
-                         float* lut_s) {
+__device__ void load_lut(const float* __restrict__ lut, int q, int kl_src,
+                         int k0, int kl, int q0, float* lut_s) {
   const int per_q = kl * kLutWidth;
   for (int i = threadIdx.x; i < BQ * per_q; i += blockDim.x) {
     const int qi = i / per_q;
     const int kcode = i - qi * per_q;   // k * 16 + code
     lut_s[lut_image_index<BQ, QV>(qi, kcode / kLutWidth, kcode % kLutWidth)] =
-        (q0 + qi < q) ? lut[(size_t)q0 * per_q + i] : 0.f;
+        (q0 + qi < q)
+            ? lut[((size_t)(q0 + qi) * kl_src + k0) * kLutWidth + kcode]
+            : 0.f;
   }
 }
 
@@ -185,17 +198,15 @@ struct ShiftedWords {
   }
 };
 
-// The per-row sum shared by K1 and K2: acc[qi] = sum over subspaces k in
-// order 0..K-1 of lut[qi, k, code(row, k)], starting from +0 (packed: the
-// low nibble of byte j is subspace 2j).  Whole code words are unrolled with
-// no test per byte; only the last partial word (kc % 4 bytes) is bounded.
+// acc[qi] += lut[qi, k, code(row, k)] over the kc code bytes of one row, one
+// add per subspace in subspace order (packed: the low nibble of byte j is
+// subspace 2j).  Whole code words are unrolled with no test per byte; only
+// the last partial word (kc % 4 bytes) is bounded.
 template <int BQ, int QV, bool PACKED, class Words>
-__device__ __forceinline__ void score_row(Words words, int kc,
-                                          const float* lut_s,
-                                          float (&acc)[BQ]) {
+__device__ __forceinline__ void add_row(Words words, int kc,
+                                        const float* lut_s,
+                                        float (&acc)[BQ]) {
   constexpr int kByte = (PACKED ? 2 : 1) * kLutWidth * BQ;   // floats a byte
-#pragma unroll
-  for (int qi = 0; qi < BQ; ++qi) acc[qi] = 0.f;
   const float* lut_w = lut_s;
   const int whole = kc >> 2;
   for (int w = 0; w < whole; ++w, lut_w += 4 * kByte) {
@@ -212,6 +223,20 @@ __device__ __forceinline__ void score_row(Words words, int kc,
       if (j < tail)
         add_byte<BQ, QV, PACKED>(acc, lut_w + j * kByte, word >> (8 * j));
   }
+}
+
+// The per-row sum shared by K1 and K2: acc[qi] = sum over subspaces k in
+// order 0..K-1 of lut[qi, k, code(row, k)], starting from +0.  The kernels'
+// wide variants take the same sum a chunk of subspaces at a time, the
+// partial sum carried from one chunk to the next, so every variant adds
+// the same terms in the same order.
+template <int BQ, int QV, bool PACKED, class Words>
+__device__ __forceinline__ void score_row(Words words, int kc,
+                                          const float* lut_s,
+                                          float (&acc)[BQ]) {
+#pragma unroll
+  for (int qi = 0; qi < BQ; ++qi) acc[qi] = 0.f;
+  add_row<BQ, QV, PACKED>(words, kc, lut_s, acc);
 }
 
 // ---------------------------------------------------------------------------
@@ -239,9 +264,16 @@ __host__ __device__ inline size_t adc_stage_bytes(int kc, int threads) {
   return ((size_t)threads * kc + 15) / 16 * 16 + 16;
 }
 
+// K1's dynamic shared memory.  cw >= kc: one chunk, the whole LUT image and
+// two buffers of whole rows.  cw < kc (the wide variant): the image of cw
+// code bytes' subspaces (cw * kl / kc of them) and two buffers of
+// word-aligned slots of cw bytes.
 __host__ __device__ inline size_t adc_smem(int bq, int kc, int kl,
-                                           int threads) {
-  return adc_lut_bytes(bq, kl) + 2 * adc_stage_bytes(kc, threads);
+                                           int threads, int cw) {
+  if (cw >= kc)
+    return adc_lut_bytes(bq, kl) + 2 * adc_stage_bytes(kc, threads);
+  return adc_lut_bytes(bq, cw * (kl / kc)) +
+         2 * (size_t)threads * code_stride(cw) * sizeof(uint32_t);
 }
 
 __device__ __forceinline__ uint32_t shared_addr(const void* p) {
@@ -301,6 +333,44 @@ __device__ void stage_codes(const uint8_t* __restrict__ codes, int kc,
     cp_async16(dst + i, src + i, min(16, nbytes - i));
 }
 
+// The wide variants' copy: bytes [c0, c0 + cb) of rows [row0, row0 + rows)
+// into slots of code_stride(cb) words, a row's piece from the slot's first
+// byte.  When every piece starts on a word (kc % 4 == 0 and c0 % 4 == 0,
+// so cb % 4 == 0 too) the words go by cp.async, each thread stepping its
+// (row, word) by a fixed amount; else byte by byte, synchronously (the
+// codes of odd kc, off every timed path).  `codes` must be 4-byte aligned.
+__device__ void stage_chunk(const uint8_t* __restrict__ codes, int kc, int c0,
+                            int cb, long long row0, int rows, uint32_t* dst) {
+  const int stride = code_stride(cb);
+  if (((kc | c0) & 3) == 0) {
+    const int wpr = cb >> 2;
+    const int pitch = kc >> 2;
+    const uint32_t* src =
+        reinterpret_cast<const uint32_t*>(codes + row0 * kc + c0);
+    const int total = rows * wpr;
+    const int dr = blockDim.x / wpr, dw = blockDim.x - dr * wpr;
+    int r = threadIdx.x / wpr, w = threadIdx.x - r * wpr;
+    for (int i = threadIdx.x; i < total; i += blockDim.x) {
+      cp_async4(dst + r * stride + w, src + (size_t)r * pitch + w);
+      r += dr;
+      w += dw;
+      if (w >= wpr) { w -= wpr; ++r; }
+    }
+    return;
+  }
+  unsigned char* d = reinterpret_cast<unsigned char*>(dst);
+  const uint8_t* src = codes + row0 * kc + c0;
+  const int total = rows * cb;
+  const int dr = blockDim.x / cb, dc = blockDim.x - dr * cb;
+  int r = threadIdx.x / cb, c = threadIdx.x - r * cb;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    d[r * 4 * stride + c] = src[(size_t)r * kc + c];
+    r += dr;
+    c += dc;
+    if (c >= cb) { c -= cb; ++r; }
+  }
+}
+
 template <int BQ, int QV, bool PACKED, bool ALIGNED>
 __device__ __forceinline__ void adc_scan(const uint8_t* __restrict__ codes,
                                          float* __restrict__ out, long long n,
@@ -356,13 +426,76 @@ lut16_adc_kernel(const uint8_t* __restrict__ codes,
     stage_codes(codes, kc, start, (int)min((long long)blockDim.x, end - start),
                 stage0);
   cp_async_commit();
-  load_lut<BQ, QV>(lut, q, kl, q0, lut_s);
+  load_lut<BQ, QV>(lut, q, kl, 0, kl, q0, lut_s);
   if ((kc & 3) == 0)
     adc_scan<BQ, QV, PACKED, true>(codes, out, n, kc, q, q0, start, end,
                                    lut_s, stage0);
   else
     adc_scan<BQ, QV, PACKED, false>(codes, out, n, kc, q, q0, start, end,
                                     lut_s, stage0);
+}
+
+// K1's wide variant, for a K whose LUT image leaves too few warps on an SM
+// (or does not fit): the same grid, and the same walk of a CTA's rows, once
+// per chunk of cw code bytes (cw * kl / kc subspaces), chunk by chunk.  A
+// chunk's LUT image is loaded once a CTA; its codes go through the two
+// buffers as in lut16_adc_kernel.  The (query, row) partial sum lives in
+// `out` between chunks: the thread that owns the cell reads it back
+// (+0 before the first chunk) and adds the chunk's subspaces in order, so
+// the sum is score_row's, add for add.  The CTA's slice of `out` is
+// re-read from L2 (at the head's shapes a range's slice is ~150 KB).
+template <int BQ, bool PACKED, int QV = query_vec<BQ>()>
+__global__ void __launch_bounds__(kMaxAdcThreads, 1)
+lut16_adc_wide_kernel(const uint8_t* __restrict__ codes,
+                      const float* __restrict__ lut, float* __restrict__ out,
+                      long long n, int kc, int q, int kl, int rows_per_cta,
+                      int cw) {
+  constexpr int kSpb = PACKED ? 2 : 1;   // subspaces a code byte
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* lut_s = reinterpret_cast<float*>(smem);
+  uint32_t* stage0 =
+      reinterpret_cast<uint32_t*>(smem + adc_lut_bytes(BQ, cw * kSpb));
+  const int chunk = blockDim.x;
+  const int stage_words = chunk * code_stride(cw);
+  const int q0 = blockIdx.y * BQ;
+  const long long start = (long long)blockIdx.x * rows_per_cta;
+  const long long end = min(n, start + rows_per_cta);
+  if (start >= end) return;
+  for (int c0 = 0; c0 < kc; c0 += cw) {
+    const int cb = min(cw, kc - c0);
+    const int stride = code_stride(cb);
+    // every thread is done with the last chunk's image and buffers
+    __syncthreads();
+    stage_chunk(codes, kc, c0, cb, start, (int)min((long long)chunk,
+                                                   end - start), stage0);
+    cp_async_commit();
+    load_lut<BQ, QV>(lut, q, kl, c0 * kSpb, cb * kSpb, q0, lut_s);
+    int buf = 0;
+    for (long long row0 = start; row0 < end; row0 += chunk, buf ^= 1) {
+      cp_async_wait_all();
+      __syncthreads();
+      const long long next = row0 + chunk;
+      if (next < end)
+        stage_chunk(codes, kc, c0, cb, next,
+                    (int)min((long long)chunk, end - next),
+                    stage0 + (buf ^ 1) * stage_words);
+      cp_async_commit();
+      const int rows = (int)min((long long)chunk, end - row0);
+      if ((int)threadIdx.x >= rows) continue;
+      const long long row = row0 + threadIdx.x;
+      float acc[BQ];
+#pragma unroll
+      for (int qi = 0; qi < BQ; ++qi)
+        acc[qi] = (c0 > 0 && q0 + qi < q) ? out[(size_t)(q0 + qi) * n + row]
+                                          : 0.f;
+      add_row<BQ, QV, PACKED>(
+          AlignedWords{stage0 + buf * stage_words + threadIdx.x * stride}, cb,
+          lut_s, acc);
+#pragma unroll
+      for (int qi = 0; qi < BQ; ++qi)
+        if (q0 + qi < q) out[(size_t)(q0 + qi) * n + row] = acc[qi];
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -562,7 +695,13 @@ __device__ void group_merge(unsigned long long* buf, int len,
 // this chunk's bias is read before the scan, so neither load's latency
 // stands between two chunks; the words go to shared memory once the scan
 // is done, before the merges.  At most 80 registers (three CTAs per SM).
-template <int BQ, bool PACKED, int QV = query_vec<BQ>()>
+//
+// WIDE (a K whose LUT image does not fit beside the buffers): the image and
+// the code slots hold cw code bytes' subspaces; each 256-row chunk's sum is
+// taken chunk of subspaces by chunk (the LUT chunk re-read from L2, the
+// chunk's code bytes staged), the partial sum in registers, so the score
+// is score_row's, add for add, before the bias and the selection.
+template <int BQ, bool PACKED, bool WIDE, int QV = query_vec<BQ>()>
 __global__ void __launch_bounds__(kThreads, 3)
 lut16_topk_partial_kernel(const uint8_t* __restrict__ codes,
                           const float* __restrict__ lut,
@@ -571,15 +710,17 @@ lut16_topk_partial_kernel(const uint8_t* __restrict__ codes,
                           unsigned long long* __restrict__ partial,
                           uint32_t* __restrict__ thresholds,
                           long long n, int kc, int q, int kl,
-                          int rows_per_cta, int cbuf) {
+                          int rows_per_cta, int cbuf, int cw) {
   static_assert(BQ <= kThreads / 32, "at least one warp per query");
   constexpr int kPrefetch = 32;   // code words a thread holds: kc <= 128
+  constexpr int kSpb = PACKED ? 2 : 1;   // subspaces a code byte
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned long long* buf = reinterpret_cast<unsigned long long*>(smem);
   unsigned long long* stage = buf + BQ * cbuf;
   float* lut_s = reinterpret_cast<float*>(stage + BQ * kThreads);
-  uint32_t* codes_s = reinterpret_cast<uint32_t*>(lut_s + BQ * kl * kLutWidth);
-  const int stride = code_stride(kc);
+  uint32_t* codes_s = reinterpret_cast<uint32_t*>(
+      lut_s + BQ * (WIDE ? cw * kSpb : kl) * kLutWidth);
+  const int stride = code_stride(WIDE ? cw : kc);
   int* len = reinterpret_cast<int*>(codes_s + kThreads * stride);
   int* count = len + BQ;
   float* own_t = reinterpret_cast<float*>(count + BQ);
@@ -591,8 +732,8 @@ lut16_topk_partial_kernel(const uint8_t* __restrict__ codes,
   const int rank = threadIdx.x % (kThreads / BQ);
   // whole code words per row and few enough to prefetch: the fast path
   const int wpr = kc >> 2;
-  const bool prefetch = (kc & 3) == 0 && wpr <= kPrefetch;
-  load_lut<BQ, QV>(lut, q, kl, q0, lut_s);
+  const bool prefetch = !WIDE && (kc & 3) == 0 && wpr <= kPrefetch;
+  if constexpr (!WIDE) load_lut<BQ, QV>(lut, q, kl, 0, kl, q0, lut_s);
   if (threadIdx.x < BQ) {
     len[threadIdx.x] = 0;
     count[threadIdx.x] = 0;
@@ -603,7 +744,7 @@ lut16_topk_partial_kernel(const uint8_t* __restrict__ codes,
   }
   const long long start = (long long)blockIdx.y * rows_per_cta;
   const long long end = min(n, start + rows_per_cta);
-  if (start < end)
+  if (!WIDE && start < end)
     load_codes(codes, kc, start, (int)min((long long)kThreads, end - start),
                codes_s);
   __syncthreads();
@@ -636,9 +777,28 @@ lut16_topk_partial_kernel(const uint8_t* __restrict__ codes,
       shared[qi] = shared_t[qi];
     }
     float acc[BQ];
-    if (mine)
+    if constexpr (WIDE) {
+#pragma unroll
+      for (int qi = 0; qi < BQ; ++qi) acc[qi] = 0.f;
+      for (int c0 = 0; c0 < kc; c0 += cw) {
+        const int cb = min(cw, kc - c0);
+        // the last chunk's image and codes are read (the first chunk: the
+        // merges of the 256 rows before are done)
+        if (c0 > 0) __syncthreads();
+        stage_chunk(codes, kc, c0, cb, row0, rows, codes_s);
+        cp_async_commit();
+        load_lut<BQ, QV>(lut, q, kl, c0 * kSpb, cb * kSpb, q0, lut_s);
+        cp_async_wait_all();
+        __syncthreads();
+        if (mine)
+          add_row<BQ, QV, PACKED>(
+              AlignedWords{codes_s + threadIdx.x * code_stride(cb)}, cb,
+              lut_s, acc);
+      }
+    } else if (mine) {
       score_row<BQ, QV, PACKED>(AlignedWords{codes_s + threadIdx.x * stride},
                                 kc, lut_s, acc);
+    }
 #pragma unroll
     for (int qi = 0; qi < BQ; ++qi) {
       float s = 0.f;
@@ -673,7 +833,7 @@ lut16_topk_partial_kernel(const uint8_t* __restrict__ codes,
         w += dw;
         if (w >= wpr) { w -= wpr; ++r; }
       }
-    } else if (next_rows > 0) {
+    } else if (!WIDE && next_rows > 0) {
       load_codes(codes, kc, row0 + kThreads, next_rows, codes_s);
     }
     // the threads of group qi merge query qi if it staged anything
@@ -780,46 +940,72 @@ topk_merge_kernel(const unsigned long long* __restrict__ in, int p_in,
 // Host side
 // ---------------------------------------------------------------------------
 
-size_t topk_smem(int bq, int kc, int kl, int cbuf) {
+// K2's partial kernel's dynamic shared memory; cw < kc: the wide variant
+// (an image of cw code bytes' subspaces, slots of cw bytes).
+size_t topk_smem(int bq, int kc, int kl, int cbuf, int cw) {
+  const bool wide = cw < kc;
   return (size_t)bq * (cbuf + kThreads) * sizeof(unsigned long long) +
-         adc_lut_bytes(bq, kl) +
-         (size_t)kThreads * code_stride(kc) * sizeof(uint32_t) +
+         adc_lut_bytes(bq, wide ? cw * (kl / kc) : kl) +
+         (size_t)kThreads * code_stride(wide ? cw : kc) * sizeof(uint32_t) +
          (size_t)bq * 4 * sizeof(uint32_t);
 }
 
-// K1 at `threads` rows per chunk (a multiple of 32, at most 1024) and
-// rows_per_cta a multiple of it; anything else is refused.
+// cw: code bytes a chunk of subspaces (a multiple of 4); cw >= kc is one
+// chunk, today's kernels, anything below takes the wide variants.
+inline bool valid_chunk(int kc, int cw) { return cw >= kc || (cw > 0 && cw % 4 == 0); }
+
+template <int BQ, bool PACKED, int QV = query_vec<BQ>()>
+void* adc_kernel(bool wide) {
+  return wide ? (void*)lut16_adc_wide_kernel<BQ, PACKED, QV>
+              : (void*)lut16_adc_kernel<BQ, PACKED, QV>;
+}
+
+// K1 at `threads` rows per chunk (a multiple of 32, at most 1024),
+// rows_per_cta a multiple of it and cw code bytes a chunk of subspaces;
+// anything else is refused.
 template <int BQ, bool PACKED, int QV = query_vec<BQ>()>
 int launch_adc(const uint8_t* codes, const float* lut, float* out, long long n,
-               int kc, int q, int kl, int threads, int rows_per_cta,
+               int kc, int q, int kl, int threads, int rows_per_cta, int cw,
                cudaStream_t stream) {
   if (threads <= 0 || threads % 32 || threads > kMaxAdcThreads ||
-      rows_per_cta <= 0 || rows_per_cta % threads)
+      rows_per_cta <= 0 || rows_per_cta % threads || !valid_chunk(kc, cw))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = adc_smem(BQ, kc, kl, threads);
-  cudaError_t e = cudaFuncSetAttribute(lut16_adc_kernel<BQ, PACKED, QV>,
+  const bool wide = cw < kc;
+  const size_t smem = adc_smem(BQ, kc, kl, threads, cw);
+  cudaError_t e = cudaFuncSetAttribute(adc_kernel<BQ, PACKED, QV>(wide),
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((unsigned)((n + rows_per_cta - 1) / rows_per_cta),
                   (unsigned)((q + BQ - 1) / BQ));
-  lut16_adc_kernel<BQ, PACKED, QV><<<grid, threads, smem, stream>>>(
-      codes, lut, out, n, kc, q, kl, rows_per_cta);
+  if (wide)
+    lut16_adc_wide_kernel<BQ, PACKED, QV><<<grid, threads, smem, stream>>>(
+        codes, lut, out, n, kc, q, kl, rows_per_cta, cw);
+  else
+    lut16_adc_kernel<BQ, PACKED, QV><<<grid, threads, smem, stream>>>(
+        codes, lut, out, n, kc, q, kl, rows_per_cta);
   return (int)cudaGetLastError();
 }
 
 // CTAs of K1 one SM holds at once, or a negative cudaError_t.
 template <int BQ, bool PACKED>
-int adc_ctas_per_sm(int kc, int kl, int threads) {
-  const size_t smem = adc_smem(BQ, kc, kl, threads);
-  cudaError_t e = cudaFuncSetAttribute(lut16_adc_kernel<BQ, PACKED>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
+int adc_ctas_per_sm(int kc, int kl, int threads, int cw) {
+  if (!valid_chunk(kc, cw)) return -(int)cudaErrorInvalidValue;
+  const size_t smem = adc_smem(BQ, kc, kl, threads, cw);
+  const void* fn = adc_kernel<BQ, PACKED>(cw < kc);
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return -(int)e;
   int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, lut16_adc_kernel<BQ, PACKED>, threads, smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads,
+                                                    smem);
   return (e != cudaSuccess) ? -(int)e : blocks;
+}
+
+template <int BQ, bool PACKED, int QV = query_vec<BQ>()>
+void* topk_kernel(bool wide) {
+  return wide ? (void*)lut16_topk_partial_kernel<BQ, PACKED, true, QV>
+              : (void*)lut16_topk_partial_kernel<BQ, PACKED, false, QV>;
 }
 
 template <int BQ, bool PACKED, int QV = query_vec<BQ>()>
@@ -827,17 +1013,26 @@ int launch_topk(const uint8_t* codes, const float* lut, const float* base,
                 long long base_qstride, uint32_t* thresholds,
                 unsigned long long* scratch_a, unsigned long long* scratch_b,
                 float* out_s, int* out_i, long long n, int kc, int q, int kl,
-                int rows_per_cta, int cbuf, cudaStream_t stream) {
-  const size_t smem = topk_smem(BQ, kc, kl, cbuf);
-  cudaError_t e = cudaFuncSetAttribute(lut16_topk_partial_kernel<BQ, PACKED, QV>,
+                int rows_per_cta, int cbuf, int cw, cudaStream_t stream) {
+  if (!valid_chunk(kc, cw)) return (int)cudaErrorInvalidValue;
+  const bool wide = cw < kc;
+  const size_t smem = topk_smem(BQ, kc, kl, cbuf, cw);
+  cudaError_t e = cudaFuncSetAttribute(topk_kernel<BQ, PACKED, QV>(wide),
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
   int p = (int)((n + rows_per_cta - 1) / rows_per_cta);
   const dim3 grid((unsigned)((q + BQ - 1) / BQ), (unsigned)p);
-  lut16_topk_partial_kernel<BQ, PACKED, QV><<<grid, kThreads, smem, stream>>>(
-      codes, lut, base, base_qstride, scratch_a, thresholds, n, kc, q, kl,
-      rows_per_cta, cbuf);
+  if (wide)
+    lut16_topk_partial_kernel<BQ, PACKED, true, QV><<<grid, kThreads, smem,
+                                                      stream>>>(
+        codes, lut, base, base_qstride, scratch_a, thresholds, n, kc, q, kl,
+        rows_per_cta, cbuf, cw);
+  else
+    lut16_topk_partial_kernel<BQ, PACKED, false, QV><<<grid, kThreads, smem,
+                                                       stream>>>(
+        codes, lut, base, base_qstride, scratch_a, thresholds, n, kc, q, kl,
+        rows_per_cta, cbuf, cw);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const size_t msmem = (size_t)3 * cbuf * sizeof(unsigned long long);
@@ -861,15 +1056,16 @@ int launch_topk(const uint8_t* codes, const float* lut, const float* base,
 // CTAs of K2's partial kernel one SM holds at once, or a negative
 // cudaError_t.
 template <int BQ, bool PACKED>
-int topk_ctas_per_sm(int kc, int kl, int cbuf) {
-  const size_t smem = topk_smem(BQ, kc, kl, cbuf);
-  cudaError_t e = cudaFuncSetAttribute(lut16_topk_partial_kernel<BQ, PACKED>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
+int topk_ctas_per_sm(int kc, int kl, int cbuf, int cw) {
+  if (!valid_chunk(kc, cw)) return -(int)cudaErrorInvalidValue;
+  const size_t smem = topk_smem(BQ, kc, kl, cbuf, cw);
+  const void* fn = topk_kernel<BQ, PACKED>(cw < kc);
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return -(int)e;
   int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, lut16_topk_partial_kernel<BQ, PACKED>, kThreads, smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads,
+                                                    smem);
   return (e != cudaSuccess) ? -(int)e : blocks;
 }
 
@@ -891,7 +1087,7 @@ int topk_ctas_per_sm(int kc, int kl, int cbuf) {
     default: return (int)cudaErrorInvalidValue;                          \
   }
 
-// K2 serves at most 4 queries per CTA (kTopkMaxBq in kernels/ops.py).
+// K2 serves at most 4 queries per CTA (TOPK_MAX_BQ in kernels/lut16.py).
 #define DISPATCH_TOPK_BQ(FN, ...)                                         \
   switch (bq * 2 + (packed ? 1 : 0)) {                                    \
     case 2: return FN<1, false>(__VA_ARGS__);                             \
@@ -906,26 +1102,27 @@ int topk_ctas_per_sm(int kc, int kl, int cbuf) {
 extern "C" {
 
 // K1.  codes (n, kc) u8, 16-byte aligned; lut (q, kl, 16) f32 with
-// kl == kc, or kl == 2*kc when packed; out (q, n) f32.  Returns the launch's
-// cudaError_t.
+// kl == kc, or kl == 2*kc when packed; out (q, n) f32; cw code bytes a chunk
+// of subspaces (>= kc: one chunk).  Returns the launch's cudaError_t.
 int lut16_adc_launch(const void* codes, const void* lut, void* out,
                      long long n, int kc, int q, int kl, int packed, int bq,
-                     int threads, int rows_per_cta, void* stream) {
+                     int threads, int rows_per_cta, int cw, void* stream) {
   if (n == 0 || q == 0) return 0;
   DISPATCH_BQ(launch_adc, static_cast<const uint8_t*>(codes),
               static_cast<const float*>(lut), static_cast<float*>(out), n, kc,
-              q, kl, threads, rows_per_cta, static_cast<cudaStream_t>(stream))
+              q, kl, threads, rows_per_cta, cw,
+              static_cast<cudaStream_t>(stream))
 }
 
 // K2.  base (q, n) f32 with base_qstride == n, or (1, n) with 0.
 // thresholds: q u32, zeroed.  Scratch: u64 keys, q * P * cbuf in scratch_a
 // and q * ceil(P / 16) * cbuf in scratch_b, P = ceil(n / rows_per_cta).
-// Output (q, cbuf) scores and row ids.
+// Output (q, cbuf) scores and row ids.  cw as for K1.
 int lut16_topk_launch(const void* codes, const void* lut, const void* base,
                       long long base_qstride, void* thresholds,
                       void* scratch_a, void* scratch_b, void* out_s,
                       void* out_i, long long n, int kc, int q, int kl,
-                      int packed, int bq, int rows_per_cta, int cbuf,
+                      int packed, int bq, int rows_per_cta, int cbuf, int cw,
                       void* stream) {
   if (n == 0 || q == 0) return 0;
   DISPATCH_TOPK_BQ(launch_topk, static_cast<const uint8_t*>(codes),
@@ -935,26 +1132,29 @@ int lut16_topk_launch(const void* codes, const void* lut, const void* base,
                    static_cast<unsigned long long*>(scratch_a),
                    static_cast<unsigned long long*>(scratch_b),
                    static_cast<float*>(out_s), static_cast<int*>(out_i), n,
-                   kc, q, kl, rows_per_cta, cbuf,
+                   kc, q, kl, rows_per_cta, cbuf, cw,
                    static_cast<cudaStream_t>(stream))
 }
 
-long long lut16_adc_smem_bytes(int bq, int kc, int kl, int threads) {
-  return (long long)adc_smem(bq, kc, kl, threads);
+long long lut16_adc_smem_bytes(int bq, int kc, int kl, int threads,
+                               int cw) {
+  return (long long)adc_smem(bq, kc, kl, threads, cw);
 }
 
 // CTAs of K1 per SM, or a negative cudaError_t.
-int lut16_adc_ctas_per_sm(int bq, int packed, int kc, int kl, int threads) {
-  DISPATCH_BQ(adc_ctas_per_sm, kc, kl, threads)
+int lut16_adc_ctas_per_sm(int bq, int packed, int kc, int kl, int threads,
+                          int cw) {
+  DISPATCH_BQ(adc_ctas_per_sm, kc, kl, threads, cw)
 }
 
-long long lut16_topk_smem_bytes(int bq, int kc, int kl, int cbuf) {
-  return (long long)topk_smem(bq, kc, kl, cbuf);
+long long lut16_topk_smem_bytes(int bq, int kc, int kl, int cbuf, int cw) {
+  return (long long)topk_smem(bq, kc, kl, cbuf, cw);
 }
 
 // CTAs of K2's partial kernel per SM, or a negative cudaError_t.
-int lut16_topk_ctas_per_sm(int bq, int packed, int kc, int kl, int cbuf) {
-  DISPATCH_TOPK_BQ(topk_ctas_per_sm, kc, kl, cbuf)
+int lut16_topk_ctas_per_sm(int bq, int packed, int kc, int kl, int cbuf,
+                           int cw) {
+  DISPATCH_TOPK_BQ(topk_ctas_per_sm, kc, kl, cbuf, cw)
 }
 
 const char* lut16_error_string(int code) {

@@ -1,12 +1,15 @@
-"""The one device rule of the port's entry points, and the one way host
-code reads a tensor or an array as numpy."""
+"""The one device rule of the port's entry points, the one way host code
+reads a tensor or an array as numpy, and the f32 rule of the products that
+stand for the JAX package's f32 matmuls."""
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "to_numpy"]
+__all__ = ["resolve_device", "to_numpy", "full_f32"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -26,3 +29,15 @@ def to_numpy(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+@contextlib.contextmanager
+def full_f32():
+    """f32 products stay f32: TF32 off for the duration, whatever the
+    caller set."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved

@@ -9,7 +9,8 @@ corpus the reference index was built from, so both packages serve the same
 main generation.  Reading a snapshot directory from disk is
 ``persist.snapshot.load_snapshot`` (``persist.recover`` with the WAL),
 which assembles the index through ``hybrid_index_from_numpy`` under the
-same leaf names.
+same leaf names.  ``hybrid_head_from_numpy`` carries the PQ LM head's
+params (``repro.serve.hybrid_head.HybridHeadParams``) the same way.
 """
 
 from __future__ import annotations
@@ -24,9 +25,10 @@ from .core.sparse_index import (CompactColumns, PaddedInvertedIndex,
                                 PaddedSparseRows, TileSparseHead)
 from .core.streaming import MutableState
 from .device import resolve_device
+from .serve.hybrid_head import HybridHeadParams
 
 __all__ = ["LEAVES", "SCALARS", "hybrid_index_from_numpy",
-           "mutable_index_from_numpy"]
+           "mutable_index_from_numpy", "hybrid_head_from_numpy"]
 
 LEAVES = ("pi", "cols_global_ids", "inv_rows", "inv_vals", "head_block",
           "head_occupancy", "head_dims", "res_cols", "res_vals", "centers",
@@ -95,3 +97,24 @@ def mutable_index_from_numpy(leaves: dict, scalars: dict, x_sparse, x_dense, *,
     idx.mutable_state = MutableState(idx, x_sparse, x_dense, ext_ids=ext_ids,
                                      delta_capacity=delta_capacity)
     return idx
+
+
+def hybrid_head_from_numpy(arrays: dict, *, codes_packed: bool,
+                           device="cuda") -> HybridHeadParams:
+    """A JAX ``HybridHeadParams`` as numpy -> the port's, on ``device``.
+
+    arrays: ``centers`` (K, 16, p), ``codes`` (V, K) uint8 or (V, ceil(K/2))
+    packed, the residual's ``q`` (V, d) int8, ``scale`` and ``zero`` (d,),
+    and ``head`` (d, V).  The head is stored as its (V, d) transpose and
+    crosses as the (d, V) view of it, as ``HybridLMHead.build`` keeps it."""
+    dev = resolve_device(device)
+
+    def t(name):
+        return torch.from_numpy(np.array(arrays[name], order="C")).to(dev)
+
+    head_t = torch.from_numpy(np.ascontiguousarray(
+        np.asarray(arrays["head"], np.float32).T)).to(dev)
+    return HybridHeadParams(
+        codebooks=PQCodebooks(centers=t("centers")), codes=t("codes"),
+        residual=ScalarQuant(q=t("q"), scale=t("scale"), zero=t("zero")),
+        head=head_t.T, codes_packed=bool(codes_packed))

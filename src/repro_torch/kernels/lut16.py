@@ -14,11 +14,18 @@ and shaped: LUT (Q, kl, 16) f32 contiguous, codes (N, Kc) uint8 contiguous.
 They allocate outputs and scratch with ``torch.empty`` and launch on the
 current stream.
 
-K1's launch plan (``plan_adc``) and the query-interleaved LUT image that
-both kernels build in shared memory (``lut_image_index``) are pure Python
-here, mirrors of ``csrc/lut16.cu``, so the CPU tests reach them; on the card
-``chip_smoke.py`` holds them against the C side's own sizes and the CUDA
-occupancy calculator.
+K1's launch plan (``plan_adc``), K2's (``plan_topk``), their shared-memory
+sizes (``adc_smem_bytes``, ``topk_smem_bytes``) and the query-interleaved LUT
+image that both kernels build in shared memory (``lut_image_index``) are
+pure Python here, mirrors of ``csrc/lut16.cu``, so the CPU tests reach them;
+on the card ``chip_smoke.py`` holds them against the C side's own sizes
+(``*_cuda``) and the CUDA occupancy calculator.
+
+Any K plans.  Where a query block's whole LUT image leaves K1 fewer than
+``MIN_ADC_WARPS`` warps an SM, or does not fit K2 beside its buffers, the
+plan stages the image and the codes in chunks of ``chunk`` code bytes (the
+kernels' wide variants); a plan's ``chunk`` is None where the whole image
+fits, and those plans are the ones the kernels always had.
 """
 
 from __future__ import annotations
@@ -34,8 +41,8 @@ from . import _build
 
 __all__ = ["candidate_buffer_width", "pack_codes", "unpack_codes",
            "lut16_adc_cuda", "lut16_adc_topk_cuda", "THREADS", "AdcPlan",
-           "plan_adc", "wave_rows", "adc_smem_bytes", "lut_image_index",
-           "query_vec"]
+           "plan_adc", "wave_rows", "adc_smem_bytes", "TopkPlan", "plan_topk",
+           "topk_smem_bytes", "lut_image_index", "query_vec"]
 
 THREADS = 256       # K2's rows per chunk in csrc/lut16.cu (kThreads)
 LUT_WIDTH = 16      # LUT entries per subspace the kernels read
@@ -51,19 +58,29 @@ SMEM_RESERVED_PER_CTA = 1024
 # K1 is compiled with __launch_bounds__(1024, 1): at most 64 registers a
 # thread, so the 65536 registers of an SM hold 32 of its warps.
 ADC_WARPS_PER_SM = 65536 // (64 * 32)
+# A plan of one chunk is kept while it holds this many warps on an SM (or
+# as many as N has rows for); below it K1 chunks K, and a chunked plan
+# takes the widest chunk that keeps ADC_CHUNK_WARPS warps (or as many as
+# fit).
+MIN_ADC_WARPS = 8
+ADC_CHUNK_WARPS = 16
+# K2: at most 4 queries a CTA; __launch_bounds__(256, 3), at most 80
+# registers a thread, so at most 3 CTAs on an SM.
+TOPK_MAX_BQ = 4
+TOPK_CTAS_PER_SM = 3
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
-    "lut16_adc_launch": ([_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _P],
-                         _I),
+    "lut16_adc_launch": ([_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _P], _I),
     "lut16_topk_launch": ([_P, _P, _P, _LL, _P, _P, _P, _P, _P, _LL, _I, _I,
-                           _I, _I, _I, _I, _I, _P], _I),
-    "lut16_adc_smem_bytes": ([_I, _I, _I, _I], _LL),
-    "lut16_adc_ctas_per_sm": ([_I, _I, _I, _I, _I], _I),
-    "lut16_topk_smem_bytes": ([_I, _I, _I, _I], _LL),
-    "lut16_topk_ctas_per_sm": ([_I, _I, _I, _I, _I], _I),
+                           _I, _I, _I, _I, _I, _I, _P], _I),
+    "lut16_adc_smem_bytes": ([_I, _I, _I, _I, _I], _LL),
+    "lut16_adc_ctas_per_sm": ([_I, _I, _I, _I, _I, _I], _I),
+    "lut16_topk_smem_bytes": ([_I, _I, _I, _I, _I], _LL),
+    "lut16_topk_ctas_per_sm": ([_I, _I, _I, _I, _I, _I], _I),
     "lut16_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -148,21 +165,67 @@ def adc_stage_bytes(kc: int, threads: int) -> int:
     return -(-threads * kc // 16) * 16 + 16
 
 
-def adc_smem_bytes(bq: int, kc: int, kl: int, threads: int) -> int:
-    """K1's dynamic shared memory: the LUT image and two code buffers."""
-    return bq * kl * LUT_WIDTH * 4 + 2 * adc_stage_bytes(kc, threads)
+def _chunk_bytes(kc: int, chunk: int | None) -> int:
+    """A plan's code bytes a chunk; None (or >= kc) is one chunk."""
+    return kc if chunk is None else min(chunk, kc)
+
+
+def adc_smem_bytes(bq: int, kc: int, kl: int, threads: int,
+                   chunk: int | None = None) -> int:
+    """K1's dynamic shared memory: one chunk, the LUT image and two code
+    buffers; a chunk of ``chunk`` < kc code bytes (the wide variant), the
+    image of its ``chunk * kl // kc`` subspaces and two buffers of
+    word-aligned slots of ``chunk`` bytes (``adc_smem`` in csrc/lut16.cu)."""
+    cw = _chunk_bytes(kc, chunk)
+    if cw == kc:
+        return bq * kl * LUT_WIDTH * 4 + 2 * adc_stage_bytes(kc, threads)
+    return (bq * cw * (kl // kc) * LUT_WIDTH * 4
+            + 2 * threads * code_stride(cw) * 4)
+
+
+def topk_smem_bytes(bq: int, kc: int, kl: int, cbuf: int,
+                    chunk: int | None = None) -> int:
+    """K2's partial kernel's dynamic shared memory: per query a buffer of
+    cbuf keys and a 256-key stage, the LUT image (of a chunk's subspaces
+    when chunked), 256 code slots and four words (``topk_smem`` in
+    csrc/lut16.cu)."""
+    cw = _chunk_bytes(kc, chunk)
+    wide = cw < kc
+    return (bq * (cbuf + THREADS) * 8
+            + bq * (cw * (kl // kc) if wide else kl) * LUT_WIDTH * 4
+            + THREADS * code_stride(cw) * 4 + bq * 4 * 4)
+
+
+def _ctas_by_smem(smem: int) -> int:
+    return SMEM_PER_SM // (smem + SMEM_RESERVED_PER_CTA)
+
+
+def _widest_chunk(size, kc: int, budget: int) -> int:
+    """The widest chunk (a multiple of 4 code bytes, below kc) whose
+    ``size(chunk)`` is within ``budget``, or 0.  ``size`` grows with the
+    chunk, so a binary search over the word count finds it."""
+    lo, hi = 0, (kc - 1) // 4
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if size(4 * mid) <= budget:
+            lo = mid
+        else:
+            hi = mid - 1
+    return 4 * lo
 
 
 @dataclasses.dataclass(frozen=True)
 class AdcPlan:
     """K1's launch: ``bq`` queries per CTA, ``threads`` rows per chunk (a
-    row a thread), ``rows_per_cta`` rows per CTA (whole chunks), and what
-    the plan expects of an SM."""
+    row a thread), ``rows_per_cta`` rows per CTA (whole chunks), what the
+    plan expects of an SM, and ``chunk``: code bytes a chunk of subspaces
+    (the wide variant), None for the whole LUT image at once."""
     bq: int
     threads: int
     rows_per_cta: int
     smem_bytes: int
     ctas_per_sm: int
+    chunk: int | None = None
 
     @property
     def warps_per_sm(self) -> int:
@@ -172,46 +235,77 @@ class AdcPlan:
         """(row ranges, query blocks)."""
         return -(-n // self.rows_per_cta), -(-q // self.bq)
 
+    def chunks(self, kc: int) -> int:
+        return -(-kc // _chunk_bytes(kc, self.chunk))
+
 
 @functools.lru_cache(maxsize=256)
 def plan_adc(q: int, n: int, kc: int, kl: int, sms: int,
              packed: bool = False) -> AdcPlan:
     """K1's block resolution.
 
-    bq: the largest of 16, 8, 4, 2, 1 not above the next power of two of Q
-    whose LUT image and smallest chunk fit a CTA; at most 8 on packed codes
-    (16 would spill: a packed word's 8 subspaces are unrolled).  threads:
-    the chunk (a multiple of 32, at most 1024 and at most N rounded up to a
-    warp) that keeps the most warps resident on an SM, by shared memory and
-    by registers; among equals, the most CTAs.  rows_per_cta: whole chunks,
-    sized so that the grid is about one wave of CTAs.  No choice changes a
-    score: every (query, row) sum is taken in subspace order."""
-    bq = min(MAX_ADC_BQ // (2 if packed else 1),
-             1 << max(q - 1, 0).bit_length())
+    One chunk: bq, the largest of 16, 8, 4, 2, 1 not above the next power
+    of two of Q whose LUT image and smallest chunk fit a CTA; at most 8 on
+    packed codes (16 would spill: a packed word's 8 subspaces are
+    unrolled).  threads: the chunk (a multiple of 32, at most 1024 and at
+    most N rounded up to a warp) that keeps the most warps resident on an
+    SM, by shared memory and by registers; among equals, the most CTAs.
+    rows_per_cta: whole chunks, sized so that the grid is about one wave of
+    CTAs.
+
+    Where that plan holds fewer than ``MIN_ADC_WARPS`` warps an SM (fewer
+    than N has rows for, at small N), or no plan of one chunk fits, K is
+    chunked (``chunk`` code bytes a chunk, a
+    multiple of 4 below kc) at the largest bq: the (threads, CTAs, chunk)
+    that keeps ``ADC_CHUNK_WARPS`` warps resident (or the most that fit)
+    with the widest chunk.  No choice changes a score: every (query, row)
+    sum is taken in subspace order."""
+    if kl != kc * (2 if packed else 1):
+        raise ValueError(f"a LUT of {kl} subspaces does not match "
+                         f"{'packed ' if packed else ''}codes of {kc} bytes")
+    top = min(MAX_ADC_BQ // (2 if packed else 1),
+              1 << max(q - 1, 0).bit_length())
     warps_cap = max(1, min(MAX_ADC_THREADS // 32, -(-n // 32)))
-    while True:
-        best = None
+    whole = None
+    bq = top
+    while whole is None and bq >= 1:
         for warps in range(1, warps_cap + 1):
             smem = adc_smem_bytes(bq, kc, kl, 32 * warps)
             if smem > SMEM_PER_CTA:
                 break
-            ctas = min(SMEM_PER_SM // (smem + SMEM_RESERVED_PER_CTA),
-                       ADC_WARPS_PER_SM // warps)
+            ctas = min(_ctas_by_smem(smem), ADC_WARPS_PER_SM // warps)
             key = (ctas * warps, ctas)
-            if ctas and (best is None or key > best[0]):
-                best = (key, warps, smem, ctas)
-        if best is not None:
-            break
-        if bq == 1:
-            raise ValueError(
-                f"K1 needs {adc_smem_bytes(1, kc, kl, 32)} bytes of shared "
-                f"memory for K={kl}, Kc={kc}, more than {SMEM_PER_CTA}")
+            if ctas and (whole is None or key > whole[0]):
+                whole = (key, bq, warps, smem, ctas, None)
         bq //= 2
-    _, warps, smem, ctas = best
+    if whole is None or whole[0][0] < min(MIN_ADC_WARPS, warps_cap):
+        chunked = None
+        for warps in range(1, warps_cap + 1):
+            threads = 32 * warps
+            for ctas in range(1, ADC_WARPS_PER_SM // warps + 1):
+                budget = min(SMEM_PER_CTA,
+                             SMEM_PER_SM // ctas - SMEM_RESERVED_PER_CTA)
+                cw = _widest_chunk(
+                    lambda c: adc_smem_bytes(top, kc, kl, threads, c), kc,
+                    budget)
+                if not cw:
+                    break
+                smem = adc_smem_bytes(top, kc, kl, threads, cw)
+                got = min(_ctas_by_smem(smem), ADC_WARPS_PER_SM // warps)
+                key = (min(got * warps, ADC_CHUNK_WARPS), cw, got * warps,
+                       got)
+                if chunked is None or key > chunked[0]:
+                    chunked = (key, top, warps, smem, got, cw)
+        if chunked is not None and (whole is None or
+                                    chunked[0][2] > whole[0][0]):
+            whole = chunked
+    if whole is None:
+        raise ValueError(f"K1 fits no plan for K={kl}, Kc={kc}")
+    _, bq, warps, smem, ctas, cw = whole
     threads = 32 * warps
     return AdcPlan(bq=bq, threads=threads,
                    rows_per_cta=wave_rows(q, n, bq, threads, ctas, sms),
-                   smem_bytes=smem, ctas_per_sm=ctas)
+                   smem_bytes=smem, ctas_per_sm=ctas, chunk=cw)
 
 
 def wave_rows(q: int, n: int, bq: int, threads: int, ctas_per_sm: int,
@@ -221,6 +315,56 @@ def wave_rows(q: int, n: int, bq: int, threads: int, ctas_per_sm: int,
     ranges = max(1, sms * ctas_per_sm // -(-q // bq))
     rows = max(1, -(-n // ranges))
     return -(-rows // threads) * threads
+
+
+@dataclasses.dataclass(frozen=True)
+class TopkPlan:
+    """K2's partial kernel: ``bq`` queries per CTA of 256 threads, the
+    shared memory, the CTAs an SM holds by it and by registers, and
+    ``chunk`` as in ``AdcPlan``."""
+    bq: int
+    smem_bytes: int
+    ctas_per_sm: int
+    chunk: int | None = None
+
+    @property
+    def warps_per_sm(self) -> int:
+        return self.ctas_per_sm * THREADS // 32
+
+
+@functools.lru_cache(maxsize=256)
+def plan_topk(q: int, kc: int, kl: int, cbuf: int) -> TopkPlan:
+    """K2's query block and chunk.
+
+    One chunk: bq, the largest of 4, 2, 1 not above the next power of two
+    of Q whose shared memory fits (one warp merges each query's candidates;
+    at K = 100, cbuf = 512 four queries keep three CTAs on an SM).  Where
+    not even one query fits, K is chunked at the largest bq: the widest
+    chunk (a multiple of 4 code bytes) that keeps the most CTAs, at most
+    ``TOPK_CTAS_PER_SM``, on an SM.  Every plan keeps 8 warps or more (a
+    CTA is 8 warps)."""
+    if kl != kc and kl != 2 * kc:
+        raise ValueError(f"a LUT of {kl} subspaces does not match codes of "
+                         f"{kc} bytes")
+    top = min(TOPK_MAX_BQ, 1 << max(q - 1, 0).bit_length())
+    bq = top
+    while bq >= 1:
+        smem = topk_smem_bytes(bq, kc, kl, cbuf)
+        if smem <= SMEM_PER_CTA:
+            return TopkPlan(bq=bq, smem_bytes=smem,
+                            ctas_per_sm=min(TOPK_CTAS_PER_SM,
+                                            _ctas_by_smem(smem)))
+        bq //= 2
+    for ctas in range(TOPK_CTAS_PER_SM, 0, -1):
+        budget = min(SMEM_PER_CTA, SMEM_PER_SM // ctas - SMEM_RESERVED_PER_CTA)
+        cw = _widest_chunk(lambda c: topk_smem_bytes(top, kc, kl, cbuf, c),
+                           kc, budget)
+        if cw:
+            smem = topk_smem_bytes(top, kc, kl, cbuf, cw)
+            return TopkPlan(bq=top, smem_bytes=smem,
+                            ctas_per_sm=min(TOPK_CTAS_PER_SM,
+                                            _ctas_by_smem(smem)), chunk=cw)
+    raise ValueError(f"K2 fits no plan for K={kl}, cbuf={cbuf}")
 
 
 def _lib() -> ctypes.CDLL:
@@ -237,32 +381,39 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def adc_smem_bytes_cuda(bq: int, kc: int, kl: int, threads: int) -> int:
+def adc_smem_bytes_cuda(bq: int, kc: int, kl: int, threads: int,
+                        chunk: int | None = None) -> int:
     """The C side's K1 shared memory, to hold ``adc_smem_bytes`` against."""
-    return int(_lib().lut16_adc_smem_bytes(bq, kc, kl, threads))
+    return int(_lib().lut16_adc_smem_bytes(bq, kc, kl, threads,
+                                           _chunk_bytes(kc, chunk)))
 
 
-def adc_ctas_per_sm(bq: int, packed: bool, kc: int, kl: int,
-                    threads: int) -> int:
+def adc_ctas_per_sm(bq: int, packed: bool, kc: int, kl: int, threads: int,
+                    chunk: int | None = None) -> int:
     """CTAs of K1 one SM holds at once (the CUDA occupancy calculator)."""
     lib = _lib()
-    got = int(lib.lut16_adc_ctas_per_sm(bq, int(packed), kc, kl, threads))
+    got = int(lib.lut16_adc_ctas_per_sm(bq, int(packed), kc, kl, threads,
+                                        _chunk_bytes(kc, chunk)))
     if got < 0:
         _check(lib, -got, "lut16_adc occupancy")
     return got
 
 
-def topk_smem_bytes(bq: int, kc: int, kl: int, cbuf: int) -> int:
-    return int(_lib().lut16_topk_smem_bytes(bq, kc, kl, cbuf))
+def topk_smem_bytes_cuda(bq: int, kc: int, kl: int, cbuf: int,
+                         chunk: int | None = None) -> int:
+    """The C side's K2 shared memory, to hold ``topk_smem_bytes`` against."""
+    return int(_lib().lut16_topk_smem_bytes(bq, kc, kl, cbuf,
+                                            _chunk_bytes(kc, chunk)))
 
 
 @functools.lru_cache(maxsize=None)
-def topk_ctas_per_sm(bq: int, packed: bool, kc: int, kl: int,
-                     cbuf: int) -> int:
+def topk_ctas_per_sm(bq: int, packed: bool, kc: int, kl: int, cbuf: int,
+                     chunk: int | None = None) -> int:
     """CTAs of K2's partial kernel one SM holds at once (the CUDA occupancy
     calculator, registers and shared memory both counted)."""
     lib = _lib()
-    got = int(lib.lut16_topk_ctas_per_sm(bq, int(packed), kc, kl, cbuf))
+    got = int(lib.lut16_topk_ctas_per_sm(bq, int(packed), kc, kl, cbuf,
+                                         _chunk_bytes(kc, chunk)))
     if got < 0:
         _check(lib, -got, "lut16_topk occupancy")
     return got
@@ -278,16 +429,18 @@ def lut16_adc_cuda(codes: torch.Tensor, lut: torch.Tensor, *, packed: bool,
     code = lib.lut16_adc_launch(codes.data_ptr(), lut.data_ptr(),
                                 out.data_ptr(), n, kc, q, kl, int(packed),
                                 plan.bq, plan.threads, plan.rows_per_cta,
-                                _stream(codes))
+                                _chunk_bytes(kc, plan.chunk), _stream(codes))
     _check(lib, code, "lut16_adc")
     return out
 
 
 def lut16_adc_topk_cuda(codes: torch.Tensor, lut: torch.Tensor,
                         base: torch.Tensor, *, cbuf: int, packed: bool,
-                        bq: int, rows_per_cta: int):
+                        bq: int, rows_per_cta: int,
+                        chunk: int | None = None):
     """Launch K2: (Q, cbuf) scores and int32 row ids, best first; slots
-    never filled are (-inf, -1).  ``base`` is (Q, N) or (1, N) f32."""
+    never filled are (-inf, -1).  ``base`` is (Q, N) or (1, N) f32;
+    ``chunk`` as in ``TopkPlan``."""
     lib = _lib()
     n, kc = codes.shape
     q, kl, _ = lut.shape
@@ -304,6 +457,6 @@ def lut16_adc_topk_cuda(codes: torch.Tensor, lut: torch.Tensor,
         codes.data_ptr(), lut.data_ptr(), base.data_ptr(), base_qstride,
         thresholds.data_ptr(), scratch_a.data_ptr(), scratch_b.data_ptr(),
         out_s.data_ptr(), out_i.data_ptr(), n, kc, q, kl, int(packed), bq,
-        rows_per_cta, cbuf, _stream(codes))
+        rows_per_cta, cbuf, _chunk_bytes(kc, chunk), _stream(codes))
     _check(lib, code, "lut16_adc_topk")
     return out_s, out_i

@@ -16,19 +16,21 @@ import functools
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from .block_sparse import (TILE, block_sparse_cuda, dense_to_bcsr,
                            inverted_value_forward_cuda)
 from .inverted import WINDOW, plan_score_inverted, score_inverted_cuda
 from .lut16 import (LUT_WIDTH, SMEM_PER_CTA, THREADS, candidate_buffer_width,
                     lut16_adc_cuda, lut16_adc_topk_cuda, pack_codes, plan_adc,
-                    topk_ctas_per_sm, topk_smem_bytes, unpack_codes)
+                    plan_topk, topk_ctas_per_sm, unpack_codes)
 from .ref import (PLAIN_CALLS, block_sparse_plain, bump,
                   inverted_value_forward_plain, lut16_adc_plain,
                   lut16_adc_topk_plain, score_inverted_plain, stable_topk)
 
 __all__ = ["lut16_adc", "lut16_adc_topk", "lut16_adc_onehot",
-           "block_sparse_matmul_bcsr", "bcsr_from_head",
+           "block_sparse_matmul", "block_sparse_matmul_bcsr",
+           "bcsr_from_head", "dense_scores_materialized",
            "inverted_value_forward", "score_inverted_vf", "pack_codes",
            "unpack_codes", "candidate_buffer_width", "MAX_FUSED_CANDIDATES",
            "LAUNCHES", "reset_counts"]
@@ -37,8 +39,7 @@ __all__ = ["lut16_adc", "lut16_adc_topk", "lut16_adc_onehot",
 # materialises the scores and sorts them (as in the JAX package).
 MAX_FUSED_CANDIDATES = 1024
 
-# K2's largest query block, and the grid's largest y dimension (its ranges).
-_TOPK_MAX_BQ = 4
+# The grid's largest y dimension (K2's ranges).
 _MAX_GRID_Y = 65535
 
 LAUNCHES = dict.fromkeys(
@@ -59,34 +60,26 @@ def _sm_count(device) -> int:
 
 
 def _resolve_topk_blocks(q: int, n: int, kc: int, kl: int, packed: bool,
-                         cbuf: int, device) -> tuple[int, int]:
-    """K2's block resolution: (bq, rows_per_cta).
+                         cbuf: int, device) -> tuple[int, int, int | None]:
+    """K2's block resolution: (bq, rows_per_cta, chunk).
 
-    bq: at most 4 queries per CTA (one warp merges each query's candidates;
-    at K = 100, cbuf = 512 four queries keep three CTAs on an SM, where
-    eight would fit one), the largest of 4, 2, 1 not above the next power
-    of two of Q whose shared memory fits.  rows_per_cta: a multiple of the
-    256-row chunk such that all CTAs fit in one wave on the card (every
-    range then starts at once and the slowest sets the time), at least
-    8 * cbuf rows (so the partial lists stay far smaller than N) and few
-    enough ranges for the grid's y dimension.  No choice changes a result:
-    the selection is exact for any ranges."""
-    bq = min(_TOPK_MAX_BQ, 1 << max(q - 1, 0).bit_length())
-    while True:
-        smem = topk_smem_bytes(bq, kc, kl, cbuf)
-        if smem <= SMEM_PER_CTA:
-            break
-        if bq == 1:
-            raise ValueError(f"K2 needs {smem} bytes of shared memory for "
-                             f"K={kl}, cbuf={cbuf}, more than {SMEM_PER_CTA}")
-        bq //= 2
-    per_sm = topk_ctas_per_sm(bq, packed, kc, kl, cbuf)
+    bq and chunk: ``lut16.plan_topk`` (at most 4 queries per CTA, the
+    whole LUT image where one query's fits, else chunks of K).
+    rows_per_cta: a multiple of the 256-row chunk such that all CTAs fit
+    in one wave on the card (every range then starts at once and the
+    slowest sets the time; the CTAs an SM holds from the occupancy
+    calculator), at least 8 * cbuf rows (so the partial lists stay far
+    smaller than N) and few enough ranges for the grid's y dimension.  No
+    choice changes a result: the selection is exact for any ranges, and
+    every sum is taken in subspace order."""
+    plan = plan_topk(q, kc, kl, cbuf)
+    per_sm = topk_ctas_per_sm(plan.bq, packed, kc, kl, cbuf, plan.chunk)
     if per_sm == 0:
-        raise ValueError(f"K2 at bq={bq}, K={kl}, cbuf={cbuf} fits no CTA "
-                         "on an SM")
-    parts = max(1, _sm_count(device) * per_sm // -(-q // bq))
+        raise ValueError(f"K2 at bq={plan.bq}, K={kl}, cbuf={cbuf} fits no "
+                         "CTA on an SM")
+    parts = max(1, _sm_count(device) * per_sm // -(-q // plan.bq))
     rows = max(-(-n // parts), 8 * cbuf, -(-n // _MAX_GRID_Y))
-    return bq, -(-rows // THREADS) * THREADS
+    return plan.bq, -(-rows // THREADS) * THREADS, plan.chunk
 
 
 def _validate_packed(kc: int, k: int, l: int, lut: torch.Tensor,
@@ -135,7 +128,8 @@ def lut16_adc(codes: torch.Tensor, lut: torch.Tensor, *,
     packed=True: codes hold two 4-bit subspace codes per byte, shape
     (N, ceil(K/2)) from pack_codes.  Requires l == 16.  Odd K is handled
     here by padding the LUT with a zero phantom subspace, so the pad nibble
-    (code 0) scores 0.  On CUDA this launches K1."""
+    (code 0) scores 0.  On CUDA this launches K1 (any K: ``plan_adc``
+    chunks K where the whole LUT image would leave too few warps)."""
     single = lut.ndim == 2
     if single:
         lut = lut[None]
@@ -199,10 +193,11 @@ def lut16_adc_topk(codes: torch.Tensor, lut: torch.Tensor, k: int, *,
                          f"{codes.device}, got {tuple(base.shape)} on "
                          f"{base.device}")
     cbuf = candidate_buffer_width(k)
-    bq, rows = _resolve_topk_blocks(q, n, kc, lut16.shape[1], packed, cbuf,
-                                    codes.device)
+    bq, rows, chunk = _resolve_topk_blocks(q, n, kc, lut16.shape[1], packed,
+                                           cbuf, codes.device)
     s, ids = lut16_adc_topk_cuda(codes, lut16, base.contiguous(), cbuf=cbuf,
-                                 packed=packed, bq=bq, rows_per_cta=rows)
+                                 packed=packed, bq=bq, rows_per_cta=rows,
+                                 chunk=chunk)
     bump(LAUNCHES, "lut16_adc_topk")
     return _normalize(s[:, :k], ids[:, :k])
 
@@ -234,6 +229,14 @@ def bcsr_from_head(head):
     dev = head.block.device
     return (torch.from_numpy(tiles).to(dev), torch.from_numpy(ptr).to(dev),
             torch.from_numpy(col).to(dev), max_steps)
+
+
+def block_sparse_matmul(q_head: torch.Tensor, head) -> torch.Tensor:
+    """Tile-skipping head scoring: q_head (Q, D_pad) x TileSparseHead ->
+    (Q, N_pad), through ``bcsr_from_head`` (the reference's wrapper of the
+    same name).  On CUDA this launches K3."""
+    tiles, ptr, col, _ = bcsr_from_head(head)
+    return block_sparse_matmul_bcsr(q_head, tiles, ptr, col)
 
 
 def block_sparse_matmul_bcsr(q_head: torch.Tensor, tiles: torch.Tensor,
@@ -335,3 +338,38 @@ def score_inverted_vf(index, q_dims: torch.Tensor,
                                                   _sm_count(rows.device)))
     bump(LAUNCHES, "score_inverted_vf")
     return out
+
+
+class _Float32Outputs(TorchDispatchMode):
+    """Records the shape of every float32 tensor an op returns."""
+
+    def __init__(self):
+        super().__init__()
+        self.shapes = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in (out if isinstance(out, (tuple, list)) else (out,)):
+            if isinstance(t, torch.Tensor) and t.dtype == torch.float32:
+                self.shapes.append(tuple(t.shape))
+        return out
+
+
+def dense_scores_materialized(fn, *args) -> bool:
+    """Structural check for the fused-select claim (DESIGN.md §2.5): run
+    ``fn(*args)`` under a dispatch mode that sees every op's outputs and
+    report whether any op PRODUCES a float32 tensor of shape (Q > 1, >= N),
+    a full per-query score matrix.  N is the first argument's leading dim
+    (the codes' rows).  A (1, N) row mask is allowed.  True for
+    materialise-then-select, False for the fused path.
+
+    The reference traces a jaxpr; here the ops run.  A CUDA kernel's
+    scratch inside its launcher is allocated through the dispatcher too,
+    so K2's (Q, P, cbuf) int64 keys are seen (and are not float32).  On
+    CPU tensors the fused path runs ``lut16_adc_topk_plain``, which
+    materialises (Q, N) itself: the check then reports True, and it
+    answers the question only for CUDA tensors."""
+    n = args[0].shape[0]
+    with _Float32Outputs() as mode:
+        fn(*args)
+    return any(len(s) == 2 and s[0] > 1 and s[1] >= n for s in mode.shapes)

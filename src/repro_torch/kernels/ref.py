@@ -14,6 +14,10 @@ stream order from +0, as the stream B4 does, so it matches that kernel (and
 the port's ``score_inverted``) bit for bit; ``score_inverted_plain`` is
 ``score_inverted`` itself, B4's plain version.  ``tf32_split`` is K3's
 operand split, done on the f32 bits as ``cvt.rna.tf32.f32`` does it.
+
+``lut16_adc_ref``, ``block_sparse_ref`` and ``bcsr_to_dense_ref`` carry the
+JAX package's oracle names and signatures (``repro/kernels/ref.py``), as
+adapters over the same arithmetic; they count no plain-version call.
 """
 
 from __future__ import annotations
@@ -26,8 +30,8 @@ from .lut16 import unpack_codes
 
 __all__ = ["lut16_adc_plain", "lut16_adc_topk_plain", "block_sparse_plain",
            "inverted_value_forward_plain", "score_inverted_plain",
-           "stable_topk", "tf32_split",
-           "PLAIN_CALLS", "bump"]
+           "stable_topk", "tf32_split", "lut16_adc_ref", "block_sparse_ref",
+           "bcsr_to_dense_ref", "PLAIN_CALLS", "bump"]
 
 PLAIN_CALLS = dict.fromkeys(
     ("lut16_adc", "lut16_adc_topk", "block_sparse_matmul",
@@ -179,3 +183,32 @@ def score_inverted_plain(index, q_dims: torch.Tensor,
     from ..core.sparse_index import score_inverted
     bump(PLAIN_CALLS, "score_inverted_vf")
     return score_inverted(index, q_dims, q_vals)
+
+
+def lut16_adc_ref(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """out[q, n] = sum_k lut[q, k, codes[n, k]] (the JAX package's oracle
+    name): codes (N, K) integer, lut (Q, K, l) -> (Q, N) f32, summed in
+    subspace order as ``lut16_adc_plain``."""
+    return _scan(codes, lut.float(), False)
+
+
+def block_sparse_ref(q: torch.Tensor, x_head: torch.Tensor) -> torch.Tensor:
+    """out = q @ x_head^T: (Q, D) x (N, D) -> (Q, N) f32 (the JAX package's
+    oracle name)."""
+    return q.float() @ x_head.float().T
+
+
+def bcsr_to_dense_ref(tiles, tile_ptr, tile_col, d: int) -> torch.Tensor:
+    """Reassemble the dense (N, D) head matrix from BCSR tiles (the JAX
+    package's host helper): a tensor on the tiles' device."""
+    tiles = torch.as_tensor(tiles)
+    ptr = torch.as_tensor(tile_ptr).tolist()
+    col = torch.as_tensor(tile_col).tolist()
+    _, br, bc = tiles.shape
+    out = torch.zeros(((len(ptr) - 1) * br, d), dtype=tiles.dtype,
+                      device=tiles.device)
+    for i in range(len(ptr) - 1):
+        for t in range(ptr[i], ptr[i + 1]):
+            j = col[t]
+            out[i * br:(i + 1) * br, j * bc:(j + 1) * bc] = tiles[t]
+    return out

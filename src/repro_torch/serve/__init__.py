@@ -1,8 +1,11 @@
 """Serving (counterpart of ``repro.serve``): the batched, cached, sharded
-and durable ``QueryService``, and the cross-process cluster tier in
-``serve.cluster``.  The PQ LM head and its decode loop are not ported yet
-(ROADMAP queue A, the LM head)."""
+and durable ``QueryService``, the PQ-approximated LM head, and the
+cross-process cluster tier in ``serve.cluster``.  The decode loop that
+consumes the head is not ported yet (ROADMAP A9a)."""
 
-from .query_service import QueryService, bucket_for  # noqa: F401
+from .hybrid_head import HybridHeadParams, HybridLMHead  # noqa: F401
+from .query_service import (CacheInfo, JitCacheInfo,  # noqa: F401
+                            QueryService, bucket_for)
 
-__all__ = ["QueryService", "bucket_for"]
+__all__ = ["HybridLMHead", "HybridHeadParams", "QueryService", "CacheInfo",
+           "JitCacheInfo", "bucket_for"]

@@ -278,7 +278,13 @@ def test_stage_bytes():
 
 
 def test_plan_refuses_what_cannot_fit():
-    with pytest.raises(ValueError, match="shared memory"):
-        lut16.plan_adc(1, 100, 4000, 4000, 132)
+    # a K whose whole LUT image fits no CTA is chunked, no longer refused
+    # (tests/test_torch_lut16_wide_k.py); a LUT that does not match its
+    # codes, and a query block without whole query groups, are refused
+    assert lut16.plan_adc(1, 100, 4000, 4000, 132).chunk is not None
+    with pytest.raises(ValueError, match="does not match"):
+        lut16.plan_adc(1, 100, 4000, 3999, 132)
+    with pytest.raises(ValueError, match="does not match"):
+        lut16.plan_adc(1, 100, 50, 100, 132, packed=False)
     with pytest.raises(ValueError, match="no groups"):
         lut16.lut_image_index(2, 5, 4)

@@ -9,7 +9,7 @@
 #define LAYOUT_CASE(BQ, QV)                                                \
   case BQ * 8 + QV:                                                        \
     return launch_adc<BQ, false, QV>(c, l, o, n, kc, q, kl, threads,       \
-                                     rows_per_cta, s);
+                                     rows_per_cta, kc, s);
 
 extern "C" int lut16_adc_layout_launch(const void* codes, const void* lut,
                                        void* out, long long n, int kc, int q,
@@ -30,7 +30,7 @@ extern "C" int lut16_adc_layout_launch(const void* codes, const void* lut,
 }
 
 // K2 with its query block's image at qv queries per load; arguments as
-// lut16_topk_launch's.
+// lut16_topk_launch's (one chunk of K).
 extern "C" int lut16_topk_layout_launch(
     const void* codes, const void* lut, const void* base,
     long long base_qstride, void* thresholds, void* scratch_a,
@@ -43,7 +43,7 @@ extern "C" int lut16_topk_layout_launch(
       static_cast<unsigned long long*>(scratch_a),                         \
       static_cast<unsigned long long*>(scratch_b),                         \
       static_cast<float*>(out_s), static_cast<int*>(out_i), n, kc, q, kl,  \
-      rows_per_cta, cbuf, static_cast<cudaStream_t>(stream)
+      rows_per_cta, cbuf, kc, static_cast<cudaStream_t>(stream)
   switch (bq * 8 + qv) {
     case 1 * 8 + 1: return launch_topk<1, false, 1>(TOPK_ARGS);
     case 4 * 8 + 1: return launch_topk<4, false, 1>(TOPK_ARGS);

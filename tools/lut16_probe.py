@@ -168,8 +168,8 @@ def main() -> int:
 
     def topk_layout(qn, qv):
         b = bias[:qn]
-        bq, rows = ops._resolve_topk_blocks(qn, n, k_sub, k_sub, False, cbuf,
-                                            codes.device)
+        bq, rows, _ = ops._resolve_topk_blocks(qn, n, k_sub, k_sub, False,
+                                               cbuf, codes.device)
         parts = -(-n // rows)
         thr = torch.zeros((qn,), dtype=torch.int32, device="cuda")
         sa = torch.empty((qn, parts, cbuf), dtype=torch.int64, device="cuda")
@@ -188,7 +188,7 @@ def main() -> int:
     for qn in (8, nq):
         ref_s, ref_i = lut16.lut16_adc_topk_cuda(
             codes, lut[:qn], bias[:qn], cbuf=cbuf, packed=False,
-            **dict(zip(("bq", "rows_per_cta"), ops._resolve_topk_blocks(
+            **dict(zip(("bq", "rows_per_cta", "chunk"), ops._resolve_topk_blocks(
                 qn, n, k_sub, k_sub, False, cbuf, codes.device))))
         for qv in (1, 2, 4):
             s_, i_ = topk_layout(qn, qv)
@@ -197,8 +197,8 @@ def main() -> int:
             out["k2_ms_by_query_vec"][f"q{qn}_qv{qv}"] = cuda_ms(
                 lambda: topk_layout(qn, qv))
 
-    bq, rows = ops._resolve_topk_blocks(nq, n, k_sub, k_sub, False, cbuf,
-                                        codes.device)
+    bq, rows, _ = ops._resolve_topk_blocks(nq, n, k_sub, k_sub, False, cbuf,
+                                           codes.device)
     out["k2_blocks"] = {"bq": bq, "rows_per_cta": rows,
                         "ctas_per_sm_cuda": lut16.topk_ctas_per_sm(
                             bq, False, k_sub, k_sub, cbuf)}
@@ -217,8 +217,8 @@ def main() -> int:
                "materialised_ms": cuda_ms(lambda: ops.lut16_adc_topk(
                    codes, lq, k, bias=bq_, fused=False))}
         if qn < nq:
-            b2, _ = ops._resolve_topk_blocks(qn, n, k_sub, k_sub, False, cbuf,
-                                             codes.device)
+            b2, _, _ = ops._resolve_topk_blocks(qn, n, k_sub, k_sub, False,
+                                                cbuf, codes.device)
             row["ms_by_rows_per_cta"] = {
                 r: cuda_ms(lambda: lut16.lut16_adc_topk_cuda(
                     codes, lq, bq_, cbuf=cbuf, packed=False, bq=b2,
