@@ -19,9 +19,12 @@ through a ragged stream, mutations, two compactions, healed frame faults,
 a scorer kill and a failover, and to exact search by recall (phase
 ``cluster``) — ``python -m
 repro_torch.launch.serve --retrieval`` plain, durable and restored, and
-``--role router`` (phase ``launch``), the PQ LM head at the qwen2-7b,
-qwen2.5-14b and deepseek-67b widths on random weights, K1 at K = d/2
-(phase ``lm_head``), and the store the JAX
+``--role router`` and ``--arch`` (phase ``launch``), the PQ LM head at the
+qwen2-7b, qwen2.5-14b and deepseek-67b widths on random weights, K1 at K =
+d/2 (phase ``lm_head``), the dense LM's decode loop at qwen2-7b's full
+width and depth — ``greedy_generate`` and ``ServeSession`` with the exact
+head and with the PQ head, K1 once a step, decode held to forward (phase
+``lm_decode``) — and the store the JAX
 package wrote (``tests/data/reference_store``) recovered on the card and
 held to the reference's results (phase ``reference_store``).  It holds
 every kernel against its plain PyTorch version on the card, at the
@@ -127,6 +130,10 @@ def tensor_bytes(obj) -> int:
     if dataclasses.is_dataclass(obj):
         return sum(tensor_bytes(getattr(obj, f.name))
                    for f in dataclasses.fields(obj))
+    if isinstance(obj, dict):
+        return sum(tensor_bytes(v) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return sum(tensor_bytes(v) for v in obj)
     return 0
 
 
@@ -2903,7 +2910,8 @@ def run_cluster(torch, ds, params):
 
 # ---------------------------------------------------------------------------
 # launch: python -m repro_torch.launch.serve --retrieval, plain / durable /
-# restored, as processes of their own on the card
+# restored, --role router and --arch (qwen2-7b-smoke and qwen2-7b, the PQ
+# head), as processes of their own on the card
 # ---------------------------------------------------------------------------
 
 def run_launch():
@@ -2920,7 +2928,10 @@ def run_launch():
                 ("plain", ["--retrieval"]),
                 ("persist", ["--retrieval", "--persist-dir", store]),
                 ("restore", ["--retrieval", "--restore", store]),
-                ("router", ["--role", "router"])):
+                ("router", ["--role", "router"]),
+                ("lm_smoke", ["--arch", "qwen2-7b-smoke", "--pq-head"]),
+                ("lm_qwen2_7b", ["--arch", "qwen2-7b", "--pq-head",
+                                 "--tokens", "8"])):
             t0 = time.perf_counter()
             r = subprocess.run(
                 [sys.executable, "-m", "repro_torch.launch.serve", *extra],
@@ -2938,6 +2949,10 @@ def run_launch():
                 check(len(status) == 1 and "'degraded': 0" in status[0],
                       f"launch.serve --role router status: {status}")
                 out[name]["status"] = status[0]
+            if name.startswith("lm_"):
+                gen = [ln for ln in lines if ln.startswith("generated (")]
+                check(len(gen) == 1 and "head=pq-hybrid" in gen[0],
+                      f"launch.serve {' '.join(extra)}: {lines}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit("launch", runs=out, seconds=time.perf_counter() - t_phase)
@@ -3032,10 +3047,9 @@ def run_reference_store(torch):
 # the head's K through its wide variant
 # ---------------------------------------------------------------------------
 
-# (name, d_model, vocab): the published widths of three configs the JAX
-# package ships (src/repro/configs/); K = d / 2 subspaces of l = 16
-LM_HEADS = (("qwen2-7b", 3584, 152064), ("qwen2.5-14b", 5120, 152064),
-            ("deepseek-67b", 8192, 102400))
+# three configs of repro_torch.configs at their published widths (d_model,
+# vocab_size); K = d / 2 subspaces of l = 16
+LM_HEADS = ("qwen2-7b", "qwen2.5-14b", "deepseek-67b")
 LM_BATCHES = (1, 8, 32)
 
 
@@ -3087,7 +3101,8 @@ def head_k1_reading(torch, ops, ref, hp, lut, sms) -> dict:
 
 
 def run_lm_head(torch) -> dict:
-    """The PQ LM head at ``LM_HEADS``' widths, random weights from a seeded
+    """The PQ LM head at the widths of ``LM_HEADS``' configs (d_model,
+    vocab_size), random weights from a seeded
     ``torch.Generator`` on the card, built and served on ``cuda`` and on
     ``cuda-packed``: build seconds by stage; ``approx_topk`` (k = 50,
     alpha = 8) at B = 1, 8, 32, f32 and with the bf16 pass 3, against
@@ -3101,18 +3116,20 @@ def run_lm_head(torch) -> dict:
     changes the batch, and scores depend in their last bits on it).  Each
     head is freed before the next is built.  Returns K1's launches."""
     import math
-    import types
 
+    from repro_torch.configs import get_config
     from repro_torch.core.pq import adc_lut
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.ref import PLAIN_CALLS
     from repro_torch.serve import HybridLMHead
-    f32 = types.SimpleNamespace(dtype="float32")
-    bf16 = types.SimpleNamespace(dtype="bfloat16")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     k, alpha = 50, 8
     heads, launches = {}, 0
-    for name, d, v in LM_HEADS:
+    for name in LM_HEADS:
+        cfg = get_config(name)
+        d, v = cfg.d_model, cfg.vocab_size
+        f32 = dataclasses.replace(cfg, dtype="float32")
+        bf16 = dataclasses.replace(cfg, dtype="bfloat16")
         g = torch.Generator(device="cuda").manual_seed(d)
         lm_head = torch.randn((d, v), generator=g, device="cuda") / math.sqrt(d)
         hidden = torch.randn((max(LM_BATCHES), d), generator=g,
@@ -3206,6 +3223,277 @@ def run_lm_head(torch) -> dict:
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# lm_decode: the dense LM zoo's decode loop (serve/serving.py) at qwen2-7b's
+# full width and depth, through the exact head and the PQ head (K1 a step)
+# ---------------------------------------------------------------------------
+
+DENSE_SMOKES = ("qwen2-7b-smoke", "stablelm-1.6b-smoke", "qwen2.5-14b-smoke",
+                "deepseek-67b-smoke")
+DECODE_ARCH = "qwen2-7b"
+DECODE_BATCHES = (1, 32)
+DECODE_PROMPT, DECODE_TOKENS, DECODE_MAX_LEN = 16, 32, 128
+DECODE_REL = 3e-2       # tests/test_models.py:72-73, decode against forward
+DECODE_REL_F32 = 1e-4   # the same check in f32: tests/test_torch_models.py
+
+
+def decode_vs_forward(torch, model, params, g, b=2, s=32) -> float:
+    """prefill(S - 1) + decode(1) against the teacher-forced forward's last
+    position, on random tokens: the max relative error, as the reference's
+    test_decode_matches_forward reads it."""
+    tokens = torch.randint(0, model.cfg.vocab_size, (b, s), generator=g,
+                           device="cuda")
+    full, _ = model.forward(params, {"tokens": tokens})
+    want = full[:, -1].float()
+    del full
+    _, state = model.prefill(params, {"tokens": tokens[:, :s - 1]}, 64)
+    got, _ = model.decode_step(params, state, tokens[:, s - 1])
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+          f"{model.cfg.name}: decode logits {tuple(got.shape)} are not "
+          f"finite {tuple(want.shape)}")
+    return float((got.float() - want).abs().max() / want.abs().max())
+
+
+def token_spread(tokens) -> dict:
+    """How far a route's greedy tokens vary: distinct tokens in each row
+    (min / median / max over the batch) and in the whole batch."""
+    rows = [len(set(r)) for r in tokens.tolist()]
+    return {"per_row_min_median_max": [min(rows), statistics.median(rows),
+                                       max(rows)],
+            "batch": len(set(tokens.flatten().tolist()))}
+
+
+def top1_margins(torch, model, params, prompt, tokens) -> dict:
+    """The exact head's top-1 margin (top-1 minus top-2 logit, in the
+    compute dtype's logits) at each generated position, from one
+    teacher-forced forward over the prompt and the exact route's tokens:
+    min / median / max, the share of ties, and the logits' std for scale.
+    A PQ head can only disagree where this margin is below its error."""
+    seq = torch.cat([prompt, tokens[:, :-1].long()], dim=1)
+    full, _ = model.forward(params, {"tokens": seq})
+    lg = full[:, prompt.shape[1] - 1:].float()
+    del full
+    top2 = lg.topk(2, dim=-1).values
+    m = (top2[..., 0] - top2[..., 1]).flatten()
+    return {"min_median_max": [float(m.min()), float(m.median()),
+                               float(m.max())],
+            "tie_share": float((m == 0).float().mean()),
+            "logit_std": float(lg.std())}
+
+
+def lockstep_decode(torch, ops, routes: dict, prompt) -> dict:
+    """``greedy_generate``'s loop, spelled out, on each route of ``routes``
+    (name -> (session, use_pq_head)), the routes in lockstep: each step,
+    every route takes its step in turn, the order alternating from step to
+    step so that the host's drift falls on all of them alike.  A CUDA event
+    pair spans each step's ``decode_step`` + ``next_token`` + count bump
+    (the host's work included); each step's launch counts are read after
+    it.  Returns name -> (tokens, per-step ms, per-step K1 launches, a
+    function that runs one more step)."""
+    from repro_torch.kernels.ref import PLAIN_CALLS
+    from repro_torch.serve.serving import _bump, _last_hidden
+
+    def start(sess, pq):
+        model = sess.model
+        batch = {"tokens": prompt}
+        logits, state = sess.prefill(batch)
+        counts = torch.zeros((prompt.shape[0], model.cfg.vocab_size),
+                             device="cuda")
+        _bump(counts, prompt)
+        tok = sess.next_token(_last_hidden(model, sess.params, batch) if pq
+                              else logits, counts)
+        _bump(counts, tok[:, None])
+        loop = {"state": state, "tok": tok, "out": [tok], "ms": [],
+                "k1": []}
+
+        def step():
+            y, loop["state"] = model.decode_step(sess.params, loop["state"],
+                                                 loop["tok"], pq)
+            loop["tok"] = sess.next_token(y, counts)
+            _bump(counts, loop["tok"][:, None])
+            return loop["tok"]
+
+        loop["step"] = step
+        return loop
+
+    loops = {name: start(*route) for name, route in routes.items()}
+    for i in range(DECODE_TOKENS - 1):
+        for name in (list(loops) if i % 2 == 0 else list(loops)[::-1]):
+            loop = loops[name]
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            ops.reset_counts()
+            a.record()
+            loop["out"].append(loop["step"]())
+            b.record()
+            b.synchronize()
+            loop["ms"].append(a.elapsed_time(b))
+            loop["k1"].append(ops.LAUNCHES["lut16_adc"])
+            check(sum(ops.LAUNCHES.values()) == loop["k1"][-1]
+                  and sum(PLAIN_CALLS.values()) == 0,
+                  f"{name}: a decode step launched {dict(ops.LAUNCHES)}, "
+                  f"plain {dict(PLAIN_CALLS)}")
+    return {name: (torch.stack(loop["out"], dim=1).to(torch.int32),
+                   loop["ms"], loop["k1"], loop["step"])
+            for name, loop in loops.items()}
+
+
+def run_lm_decode(torch) -> dict:
+    """The decode loop at qwen2-7b's full width and depth (28 layers, d 3584,
+    GQA 28 / 4, d_ff 18944, V 152064), random weights from ``Model.init``
+    with a seeded ``torch.Generator`` on the card, in bf16 from
+    ``ServeSession.create`` on, through ``greedy_generate`` on the f32 params
+    with the exact head and with the PQ head (``cuda``: K1 at K = 1792 a
+    step).  Fails unless decode equals forward within the reference's rel
+    3e-2 (and within 1e-4 on the four dense smoke configs in f32), every PQ
+    step launches K1 exactly once and the exact route never, the
+    spelled-out timed loop (``lockstep_decode``, on sessions built after
+    the ``greedy_generate`` calls) gives ``greedy_generate``'s tokens, one
+    step of each route runs under ``set_sync_debug_mode("error")``, and
+    ``max_memory_allocated`` stays under 70 GB.  Reports, at B = 1 and 32,
+    ms a step (median of CUDA-event readings, host work included, the two
+    routes in lockstep), tokens/s, the head's ms inside a step, launches
+    and device time a step (torch.profiler), PQ-vs-exact token agreement
+    beside the distinct tokens each route produced and the exact head's
+    top-1 margins; and the head's build seconds.  Returns K1's launches on
+    the main path."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import PLAIN_CALLS
+    from repro_torch.models import Model
+    from repro_torch.serve import ServeSession, greedy_generate
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    smokes = {}
+    for name in DENSE_SMOKES:
+        cfg = dataclasses.replace(get_config(name), dtype="float32")
+        model = Model(cfg)
+        g = torch.Generator(device="cuda").manual_seed(cfg.d_model)
+        rel = decode_vs_forward(torch, model,
+                                model.init(g, device="cuda"), g)
+        check(rel < DECODE_REL_F32,
+              f"{name} (f32): decode vs forward rel {rel}")
+        smokes[name] = rel
+
+    cfg = get_config(DECODE_ARCH)
+    model = Model(cfg)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init(g, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params_bytes = tensor_bytes(params)
+    prompts = {b: torch.randint(0, cfg.vocab_size, (b, DECODE_PROMPT),
+                                generator=g, device="cuda")
+               for b in DECODE_BATCHES}
+
+    # the main path, as a user calls it: greedy_generate on the f32 tree,
+    # every count at zero just before each call
+    launches, tokens = 0, {}
+    for b in DECODE_BATCHES:
+        for route, pq in (("exact", False), ("pq", True)):
+            ops.reset_counts()
+            toks = greedy_generate(model, params, prompts[b], DECODE_TOKENS,
+                                   DECODE_MAX_LEN, use_pq_head=pq)
+            torch.cuda.synchronize()
+            got = dict(ops.LAUNCHES)
+            want_k1 = DECODE_TOKENS if pq else 0
+            check(got["lut16_adc"] == want_k1 == sum(got.values())
+                  and sum(PLAIN_CALLS.values()) == 0,
+                  f"{route}, B = {b}: greedy_generate launched {got} "
+                  f"(K1 {want_k1} expected), plain {dict(PLAIN_CALLS)}")
+            launches += got["lut16_adc"]
+            check(tuple(toks.shape) == (b, DECODE_TOKENS)
+                  and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+                  f"{route}, B = {b}: tokens {tuple(toks.shape)} outside "
+                  f"the vocabulary")
+            tokens[b, route] = toks
+
+    # the timed loop's sessions: one build of the PQ head, as
+    # greedy_generate builds it, and the exact route on its bf16 layers;
+    # then the f32 tree goes
+    t0 = time.perf_counter()
+    pq_sess = ServeSession.create(model, params, DECODE_MAX_LEN,
+                                  use_pq_head=True, head_backend="cuda")
+    torch.cuda.synchronize()
+    create_s = time.perf_counter() - t0
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    exact_sess = dataclasses.replace(pq_sess, pq_head=None, pq_params=None)
+    rel = decode_vs_forward(torch, model, pq_sess.params, g)
+    check(rel < DECODE_REL, f"{DECODE_ARCH}: decode vs forward rel {rel}")
+
+    by_b = {}
+    for b in DECODE_BATCHES:
+        prompt = prompts[b]
+        sessions = {"exact": (exact_sess, False), "pq": (pq_sess, True)}
+        routes, spread = {}, {}
+        timed = lockstep_decode(torch, ops, sessions, prompt)
+        for route, (sess, pq) in sessions.items():
+            t_toks, ms, k1, step = timed[route]
+            check(torch.equal(t_toks, tokens[b, route]),
+                  f"{route}, B = {b}: the timed loop's tokens differ from "
+                  f"greedy_generate's")
+            check(all(n == (1 if pq else 0) for n in k1),
+                  f"{route}, B = {b}: K1 launches a step {k1}")
+            if b == DECODE_BATCHES[0]:
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    step()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            # the head inside a step, on this route's last hidden state
+            hidden, _ = model.decode_step(
+                sess.params, model.init_decode_state(
+                    sess.params, b, DECODE_MAX_LEN), t_toks[:, -1], True)
+            counts = torch.zeros((b, cfg.vocab_size), device="cuda")
+            if pq:
+                head_ms = cuda_ms(lambda: sess.next_token(hidden, counts))
+            else:
+                h16 = hidden.to(torch.bfloat16)[:, None]
+                head_ms = cuda_ms(lambda: sess.next_token(
+                    model._head(sess.params, h16)[:, 0], counts))
+            prof = device_profile(torch, step)
+            prof.pop("k2", None)
+            step_ms = statistics.median(ms)
+            routes[route] = {
+                "step_ms": step_ms,
+                "step_ms_p10_p90": [float(np.percentile(ms, 10)),
+                                    float(np.percentile(ms, 90))],
+                "tokens_per_s": b * 1e3 / step_ms,
+                "head_ms": head_ms, "head_share": head_ms / step_ms,
+                "k1_launches_per_step": k1[0], "profile": prof}
+            spread[route] = token_spread(tokens[b, route])
+        agree = float((tokens[b, "exact"] == tokens[b, "pq"]).float().mean())
+        by_b[str(b)] = {"pq_exact_token_agreement": agree,
+                        "distinct_tokens": spread,
+                        "exact_top1_margin": top1_margins(
+                            torch, model, exact_sess.params, prompt,
+                            tokens[b, "exact"]),
+                        **routes}
+    peak = torch.cuda.max_memory_allocated()
+    check(peak < 70e9, f"lm_decode max_memory_allocated {peak} >= 70 GB")
+    emit("lm_decode", config=DECODE_ARCH, layers=cfg.num_layers,
+         d_model=cfg.d_model, vocab=cfg.vocab_size, dtype=cfg.dtype,
+         prompt=DECODE_PROMPT, new_tokens=DECODE_TOKENS,
+         max_len=DECODE_MAX_LEN, smoke_f32_decode_rel=smokes,
+         smoke_f32_decode_bound=DECODE_REL_F32, decode_rel=rel,
+         decode_bound=DECODE_REL, init_s=init_s,
+         params_f32_bytes=params_bytes,
+         session_create_s=create_s,
+         head_build_s=sum(pq_sess.pq_params.build_seconds.values()),
+         head_build_stage_s=pq_sess.pq_params.build_seconds,
+         session_device_bytes=tensor_bytes(pq_sess.params)
+         + tensor_bytes(pq_sess.pq_params),
+         by_batch=by_b, max_memory_allocated=peak,
+         seconds=time.perf_counter() - t_phase)
+    return {"launches": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=524288,
@@ -3276,6 +3564,12 @@ def main() -> int:
         r["sharded_launches"] = sharded[r["name"]]
     # the PQ LM head's main path: K1 at the head's K (its wide variant)
     rows[0]["lm_head_launches"] = run_lm_head(torch)["launches"]
+    # the decode loop's main path: K1 once a PQ step at qwen2-7b
+    rows[0]["lm_decode_launches"] = run_lm_decode(torch)["launches"]
+    # the decode loops' closures hold the sessions in reference cycles;
+    # launch's --arch qwen2-7b process needs their ~20 GB
+    gc.collect()
+    torch.cuda.empty_cache()
     run_launch()
     run_reference_store(torch)
     emit("total", seconds=time.perf_counter() - t_start)

@@ -10,7 +10,8 @@ main generation.  Reading a snapshot directory from disk is
 ``persist.snapshot.load_snapshot`` (``persist.recover`` with the WAL),
 which assembles the index through ``hybrid_index_from_numpy`` under the
 same leaf names.  ``hybrid_head_from_numpy`` carries the PQ LM head's
-params (``repro.serve.hybrid_head.HybridHeadParams``) the same way.
+params (``repro.serve.hybrid_head.HybridHeadParams``) the same way, and
+``model_params_from_numpy`` a ``repro.models.Model``'s params.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ from .device import resolve_device
 from .serve.hybrid_head import HybridHeadParams
 
 __all__ = ["LEAVES", "SCALARS", "hybrid_index_from_numpy",
-           "mutable_index_from_numpy", "hybrid_head_from_numpy"]
+           "mutable_index_from_numpy", "hybrid_head_from_numpy",
+           "model_params_from_numpy"]
 
 LEAVES = ("pi", "cols_global_ids", "inv_rows", "inv_vals", "head_block",
           "head_occupancy", "head_dims", "res_cols", "res_vals", "centers",
@@ -118,3 +120,26 @@ def hybrid_head_from_numpy(arrays: dict, *, codes_packed: bool,
         codebooks=PQCodebooks(centers=t("centers")), codes=t("codes"),
         residual=ScalarQuant(q=t("q"), scale=t("scale"), zero=t("zero")),
         head=head_t.T, codes_packed=bool(codes_packed))
+
+
+def model_params_from_numpy(params: dict, cfg, device="cuda") -> dict:
+    """A JAX ``Model.init`` param tree with numpy leaves -> the port's, on
+    ``device``: the leading repeats axis of every leaf under
+    ``params["blocks"][pos]`` is unstacked into a list of per-layer dicts
+    (``repro_torch.models.Model``'s layout); the other leaves cross as they
+    are.  ``cfg`` gives the number of repeats."""
+    dev = resolve_device(device)
+    repeats = cfg.num_layers // len(params["blocks"])
+
+    def tree(x, index=None):
+        if isinstance(x, dict):
+            return {k: tree(v, index) for k, v in x.items()}
+        a = np.asarray(x) if index is None else np.asarray(x)[index]
+        return torch.from_numpy(np.array(a, order="C")).to(dev)
+
+    out = {k: tree(v) for k, v in params.items()
+           if k not in ("blocks", "tail")}
+    out["blocks"] = [[tree(block, r) for r in range(repeats)]
+                     for block in params["blocks"]]
+    out["tail"] = [tree(layer) for layer in params["tail"]]
+    return out

@@ -1,5 +1,13 @@
-"""Serving launcher of the port: the retrieval and cluster modes of
+"""Serving launcher of the port: the LM, retrieval and cluster modes of
 ``repro.launch.serve``, on the card unless ``--device cpu``.
+
+LM mode (``--arch``): random weights from ``--seed``, prefill a batch of
+prompts, decode ``--tokens`` tokens and report per-step latency, with either
+the exact head or the paper's PQ hybrid head (``--pq-head``).  The dense
+family runs; other families wait for ROADMAP A9b.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b-smoke \
+        --tokens 32 --batch 4 --pq-head
 
 Retrieval mode (DESIGN.md §5): build a synthetic hybrid index, stand up the
 batched QueryService, drive a ragged query stream through it twice (cold +
@@ -31,8 +39,7 @@ deployment (the remaining flags go to the shard server).
         --points 2000 --queries 16 --cluster-scorers 2 --replicas 1
 
 ``--metrics-port`` exposes the service's (or router's) metrics registry as
-a text endpoint.  The LM mode (``--arch``) is not ported yet and exits
-with the ROADMAP item it waits for.
+a text endpoint.
 """
 
 from __future__ import annotations
@@ -43,8 +50,36 @@ import time
 
 import numpy as np
 
-_WAITS = {"--arch": "ROADMAP queue A items 8-9 (the PQ LM head and the "
-                    "LM zoo)"}
+
+def run_lm(args) -> None:
+    """Decode-loop latency probe (exact vs PQ hybrid head) on ``--device``:
+    the wall time of ``greedy_generate``, the PQ head's build included, as
+    the reference reports it."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.device import resolve_device
+    from repro_torch.models import Model
+    from repro_torch.serve import greedy_generate
+
+    cfg = get_config(args.arch)
+    dev = resolve_device(args.device)
+    model = Model(cfg)
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    params = model.init(g, device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                           generator=g, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = greedy_generate(model, params, prompt, args.tokens, args.max_len,
+                          use_pq_head=args.pq_head,
+                          penalty=args.penalty).cpu()
+    dt = time.perf_counter() - t0
+    print(f"generated {tuple(out.shape)} in {dt:.2f}s "
+          f"({dt / args.tokens * 1e3:.1f} ms/step, "
+          f"head={'pq-hybrid' if args.pq_head else 'exact'})")
+    print("sample:", out[0, :16].tolist())
 
 
 def _maybe_metrics_server(args, registry):
@@ -232,8 +267,8 @@ def run_router(args) -> None:
 
 
 def main(argv=None):
-    """Parse args and dispatch to the retrieval or cluster launcher; the LM
-    mode exits with the ROADMAP item it waits for.
+    """Parse args and dispatch to the cluster, retrieval or LM launcher, in
+    the reference's order.
 
     ``--role shard`` short-circuits BEFORE the full parser: the remaining
     flags (with ``--shard-role`` mapped to the server's ``--role``) are
@@ -250,7 +285,14 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--retrieval", action="store_true",
                     help="serve a hybrid retrieval index")
-    ap.add_argument("--arch", help="LM mode: not ported yet")
+    # LM mode
+    ap.add_argument("--arch", help="LM mode: a config of repro_torch.configs")
+    ap.add_argument("--tokens", type=int, default=32)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--pq-head", action="store_true")
+    ap.add_argument("--penalty", type=float, default=0.0)
     # cluster mode (DESIGN.md §8)
     ap.add_argument("--role", choices=["router", "shard"],
                     help="cluster mode: 'shard' runs one shard-server "
@@ -278,14 +320,12 @@ def main(argv=None):
                          "endpoint on this port (0 = ephemeral; DESIGN.md "
                          "§9.1)")
     args = ap.parse_args(argv)
-    for flag, waits in _WAITS.items():
-        if getattr(args, flag[2:]) is not None:
-            ap.error(f"{flag} is not ported yet: it waits for {waits}")
     if args.role == "router":
         return run_router(args)
     if not args.retrieval:
-        ap.error("pass --retrieval or --role (the LM mode waits for "
-                 f"{_WAITS['--arch']})")
+        if not args.arch:
+            ap.error("--arch is required in LM mode")
+        return run_lm(args)
     if args.persist_dir and args.restore:
         ap.error("--persist-dir bootstraps a new store and --restore "
                  "resumes one: pass one of them")

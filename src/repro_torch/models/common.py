@@ -1,0 +1,121 @@
+"""Numerics shared by the model zoo (counterpart of ``repro.models.common``):
+norms, RoPE, the fan-in init and the MLP activations.
+
+The reference's logical-axis sharding helpers (``logical_constraint``,
+``sharding_rules``, ``resolve_spec``, ``logical_spec``, ``current_mesh``)
+place arrays on a TPU mesh; on one card every constraint is the identity, so
+they are not ported.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..device import resolve_device
+
+__all__ = ["compute_dtype", "rms_norm", "layer_norm", "apply_norm",
+           "init_norm", "rope", "rope_angles", "apply_rope", "dense_init",
+           "activation"]
+
+
+def compute_dtype(cfg) -> torch.dtype:
+    """The activations' dtype: bf16 for ``"bfloat16"``, else f32 (as the
+    reference's ``jnp.bfloat16 if cfg.dtype == "bfloat16" else f32``)."""
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm in f32, cast back; ``scale`` is stored as ``1 + scale``."""
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + scale.float())).to(dt)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dt)
+
+
+def apply_norm(x, p, kind: str):
+    if kind == "layernorm":
+        return layer_norm(x, p["scale"], p["bias"])
+    return rms_norm(x, p["scale"])
+
+
+def init_norm(d: int, kind: str, device="cuda") -> dict:
+    """A norm's f32 params on ``device`` (the card unless the caller asks
+    for the CPU)."""
+    device = resolve_device(device)
+    if kind == "layernorm":
+        return {"scale": torch.ones((d,), device=device),
+                "bias": torch.zeros((d,), device=device)}
+    return {"scale": torch.zeros((d,), device=device)}  # rms: (1 + scale)
+
+
+def rope_angles(positions: torch.Tensor, hd: int, theta: float,
+                fraction: float = 1.0):
+    """(cos, sin) of RoPE at ``positions`` (broadcastable to (..., S)), each
+    (..., S, 1, half) f32; None when no dim rotates.  A layer stack at one
+    set of positions computes them once and shares them."""
+    rot = int(hd * fraction) // 2 * 2
+    if rot == 0:
+        return None
+    half = rot // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=positions.device) / half)
+    ang = positions[..., None, None].float() * freq    # (..., S, 1, half)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, angles) -> torch.Tensor:
+    """Rotate the leading dims of ``x`` (..., S, H, hd) by ``rope_angles``:
+    the products in f32, cast back to ``x``'s dtype."""
+    if angles is None:
+        return x
+    cos, sin = angles
+    half = cos.shape[-1]
+    rot = 2 * half
+    xr, xp = x[..., :rot], x[..., rot:]
+    x1, x2 = xr[..., :half], xr[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return torch.cat([out.to(x.dtype), xp], dim=-1)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+         fraction: float = 1.0) -> torch.Tensor:
+    """Rotary embedding on the leading ``fraction`` of head dims.
+
+    x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    return apply_rope(x, rope_angles(positions, x.shape[-1], theta, fraction))
+
+
+def dense_init(generator: torch.Generator, shape,
+               in_axis: int = 0) -> torch.Tensor:
+    """Truncated-normal fan-in init, f32 master weights: N(0, 1) cut to
+    [-2, 2] (by inverting the normal CDF on a uniform draw, as
+    ``torch.nn.init.trunc_normal_`` does), times ``fan_in ** -0.5`` with
+    ``fan_in = shape[in_axis]``, on ``generator``'s device."""
+    lo = (1.0 + math.erf(-2.0 / math.sqrt(2.0))) / 2.0
+    hi = (1.0 + math.erf(2.0 / math.sqrt(2.0))) / 2.0
+    t = torch.empty(tuple(shape), dtype=torch.float32,
+                    device=generator.device)
+    t.uniform_(2 * lo - 1, 2 * hi - 1, generator=generator)
+    t.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
+    return t.mul_(shape[in_axis] ** -0.5)
+
+
+def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """``jax.nn.gelu`` (its tanh approximation) or ``jax.nn.silu``."""
+    if kind == "gelu":
+        return F.gelu(x, approximate="tanh")
+    return F.silu(x)

@@ -1,0 +1,154 @@
+"""Batched serving session (counterpart of ``repro.serve.serving``): prefill
+-> decode loop with either the exact full-vocab head or the PQ hybrid head
+(the paper's technique).
+
+Tracks per-sequence token counts so the hybrid head's sparse penalty term
+(repetition penalty) exercises the paper's sparse + dense decomposition on a
+real serving signal.
+
+The reference casts every layer matrix to the compute dtype inside each
+jitted product; casting once gives the same bits, so a session holds its
+layer matrices and the exact head in ``cfg.dtype`` from ``create`` on.  The
+PQ head is built from the caller's f32 ``lm_head`` before the cast.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..models import Model
+from ..models.common import compute_dtype
+from .hybrid_head import HybridLMHead
+
+__all__ = ["ServeSession", "greedy_generate"]
+
+
+def _serving_params(params: dict, cfg) -> dict:
+    """``params`` with each layer's attention and MLP leaves and the exact
+    head in the compute dtype (bf16 for ``"bfloat16"``); the norms and the
+    embedding table stay f32, as the reference reads them.  f32 configs get
+    ``params`` back unchanged."""
+    dtype = compute_dtype(cfg)
+    if dtype == torch.float32:
+        return params
+
+    def layer(p):
+        return {k: ({n: t.to(dtype) for n, t in v.items()}
+                    if k in ("attn", "mlp") else v) for k, v in p.items()}
+
+    return {**params, "lm_head": params["lm_head"].to(dtype),
+            "blocks": [[layer(p) for p in params["blocks"][0]]]}
+
+
+@dataclasses.dataclass
+class ServeSession:
+    """One serving deployment: model + params + optional PQ hybrid head.
+
+    ``head_buckets`` (DESIGN.md §5): when set, decode-time head calls pad
+    the batch up to these static sizes, so sessions joining and leaving the
+    batch meet at most ``len(head_buckets)`` head shapes."""
+    model: Model
+    params: dict
+    max_len: int
+    pq_head: HybridLMHead | None = None
+    pq_params: object = None
+    head_buckets: tuple[int, ...] | None = None
+
+    @classmethod
+    def create(cls, model: Model, params: dict, max_len: int,
+               use_pq_head: bool | None = None, use_kernel: bool = False,
+               head_backend: str | None = None,
+               head_buckets: tuple[int, ...] | None = None):
+        """head_backend: the engine backend of the PQ head's pass-1 scan
+        (``ref``, ``onehot``, ``cuda``, ``cuda-packed``, or the reference's
+        names); None resolves to ``cuda`` (``HybridLMHead``).  The head is
+        built on the params' device.  head_buckets: static decode-batch
+        buckets for the PQ head (None keeps the exact batch size)."""
+        cfg = model.cfg
+        use_pq = cfg.pq_head if use_pq_head is None else use_pq_head
+        head = hp = None
+        if use_pq:
+            head = HybridLMHead(cfg, use_kernel=use_kernel,
+                                backend=head_backend)
+            hp = head.build(params["lm_head"],
+                            device=params["lm_head"].device)
+        return cls(model=model, params=_serving_params(params, cfg),
+                   max_len=max_len, pq_head=head, pq_params=hp,
+                   head_buckets=head_buckets)
+
+    def prefill(self, batch):
+        """Prefill of a prompt batch into a decode state of ``max_len``."""
+        return self.model.prefill(self.params, batch, self.max_len)
+
+    def next_token(self, logits_or_hidden, counts, *, penalty: float = 0.0):
+        """Greedy next token, (B,) int64, from logits (exact head) or hidden
+        states (PQ head), with the sparse repetition-penalty term."""
+        if self.pq_head is not None:
+            # h = 1 needs a deep overfetch (paper Prop. 4: recall tracks the
+            # (h, alpha*h) gap; top-1 margins are the tightest)
+            if self.head_buckets is not None:
+                _, ids = self.pq_head.approx_topk_bucketed(
+                    self.pq_params, logits_or_hidden, counts, 1, 128,
+                    penalty, buckets=self.head_buckets)
+            else:
+                _, ids = self.pq_head.approx_topk(
+                    self.pq_params, logits_or_hidden, counts, 1, 128, penalty)
+            return ids[:, 0].long()
+        logits = logits_or_hidden
+        if penalty != 0.0 and counts is not None:
+            logits = logits - penalty * counts
+        return torch.argmax(logits, dim=-1)
+
+
+def greedy_generate(model: Model, params: dict, prompt_tokens, num_steps: int,
+                    max_len: int, *, use_pq_head: bool = False,
+                    penalty: float = 0.0, cond=None):
+    """Greedy decode ``num_steps`` tokens after a prompt.  Returns (B, T)
+    int32 ids on the params' device.
+
+    With use_pq_head, the final hidden state feeds the paper's PQ + residual
+    head instead of the full-vocab product; outputs agree except where the
+    top-1 margin is below the PQ error."""
+    if cond is not None:
+        raise NotImplementedError("conditioning embeddings feed the vlm and "
+                                  "audio families, ROADMAP A9b")
+    sess = ServeSession.create(model, params, max_len, use_pq_head)
+    dev = sess.params["lm_head"].device
+    prompt = torch.as_tensor(prompt_tokens, device=dev).long()
+    b = prompt.shape[0]
+    batch = {"tokens": prompt}
+    logits, state = sess.prefill(batch)
+    counts = torch.zeros((b, model.cfg.vocab_size), device=dev)
+    _bump(counts, prompt)
+
+    out = []
+    if use_pq_head:
+        # re-derive the hidden state of the prompt's last position
+        tok = sess.next_token(_last_hidden(model, sess.params, batch), counts,
+                              penalty=penalty)
+    else:
+        tok = sess.next_token(logits, counts, penalty=penalty)
+    out.append(tok)
+    _bump(counts, tok[:, None])
+    for _ in range(num_steps - 1):
+        y, state = model.decode_step(sess.params, state, tok, use_pq_head)
+        tok = sess.next_token(y, counts, penalty=penalty)
+        out.append(tok)
+        _bump(counts, tok[:, None])
+    return torch.stack(out, dim=1).to(torch.int32)
+
+
+def _bump(counts: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """counts[b, tokens[b, j]] += 1 for every j, in place; duplicates add,
+    as the reference's ``.at[].add`` does."""
+    bidx = torch.arange(counts.shape[0], device=counts.device)[:, None]
+    return counts.index_put_((bidx.expand_as(tokens), tokens.long()),
+                             torch.ones(tokens.shape, device=counts.device),
+                             accumulate=True)
+
+
+def _last_hidden(model: Model, params: dict, batch) -> torch.Tensor:
+    hidden, _ = model.forward(params, batch, return_hidden=True)
+    return hidden[:, -1].float()

@@ -3,7 +3,8 @@ chip_smoke.py, tools/lut16_probe.py, tools/context_probe.py and
 tools/b4_probe.py, imports
 jax or the JAX package ``repro``, and the package (its serving, cluster,
 persistence, observability, checkpoint and launch subpackages included)
-imports in a process where jax cannot be imported at all.
+imports in a process where jax cannot be imported at all (its configs,
+models and decode loop included).
 ``tools/make_reference_store.py`` is the reference's tool and imports
 ``repro`` on purpose."""
 
@@ -49,7 +50,8 @@ def test_package_imports_without_jax():
             "repro_torch.obs, repro_torch.checkpoint, "
             "repro_torch.serve.cluster, "
             "repro_torch.serve.cluster.shard_server, "
-            "repro_torch.launch.serve\n"
+            "repro_torch.launch.serve, repro_torch.configs, "
+            "repro_torch.models, repro_torch.serve.serving\n"
             "assert 'jax' not in {m.split('.')[0] for m, v in "
             "sys.modules.items() if v is not None}\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,

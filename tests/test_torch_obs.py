@@ -193,15 +193,28 @@ def test_launch_serve_retrieval_plain_durable_restored(tmp_path):
 
 @pytest.mark.parametrize("flag", ["--role", "--arch"])
 def test_launch_serve_unported_modes_name_their_item(flag, capsys):
-    """``--arch`` names the ROADMAP item it waits for; ``--role`` is ported
-    (the cluster tier), so an unknown role is refused with the two it
-    takes."""
+    """``--role`` and ``--arch`` are ported (the cluster tier, the LM mode):
+    an unknown role is refused with the two it takes, an unknown arch
+    raises the reference's "unknown arch" ``KeyError``."""
     from repro_torch.launch.serve import main
+    if flag == "--arch":
+        with pytest.raises(KeyError, match="unknown arch 'x'"):
+            main(["--arch", "x", "--device", "cpu"])
+        return
     with pytest.raises(SystemExit) as e:
         main(["--retrieval", flag, "x"])
     assert e.value.code == 2
     err = capsys.readouterr().err
-    if flag == "--arch":
-        assert "waits for ROADMAP queue A" in err
-    else:
-        assert "invalid choice: 'x'" in err and "{router,shard}" in err
+    assert "invalid choice: 'x'" in err and "{router,shard}" in err
+
+
+def test_launch_serve_lm_mode_on_cpu(capsys):
+    """``--arch qwen2-7b-smoke --pq-head`` decodes on the CPU and prints
+    the reference's two lines."""
+    from repro_torch.launch.serve import main
+    main(["--arch", "qwen2-7b-smoke", "--device", "cpu", "--tokens", "2",
+          "--pq-head"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("generated (4, 2) in ")
+    assert out[0].endswith("ms/step, head=pq-hybrid)")
+    assert out[1].startswith("sample: [") and len(out) == 2
