@@ -24,7 +24,11 @@ qwen2-7b, qwen2.5-14b and deepseek-67b widths on random weights, K1 at K =
 d/2 (phase ``lm_head``), the dense LM's decode loop at qwen2-7b's full
 width and depth — ``greedy_generate`` and ``ServeSession`` with the exact
 head and with the PQ head, K1 once a step, decode held to forward (phase
-``lm_decode``) — and the store the JAX
+``lm_decode``) — the other families of the LM zoo: recurrentgemma-9b at
+full width and depth through both heads (K1 at V = 256000, K = 2048 a PQ
+step), mamba2-780m at full size and qwen2-moe-a2.7b at full width (8 of
+24 layers) through the exact head, and the six smoke configs of these
+families (phase ``lm_families``) — and the store the JAX
 package wrote (``tests/data/reference_store``) recovered on the card and
 held to the reference's results (phase ``reference_store``).  It holds
 every kernel against its plain PyTorch version on the card, at the
@@ -2911,7 +2915,8 @@ def run_cluster(torch, ds, params):
 # ---------------------------------------------------------------------------
 # launch: python -m repro_torch.launch.serve --retrieval, plain / durable /
 # restored, --role router and --arch (qwen2-7b-smoke and qwen2-7b, the PQ
-# head), as processes of their own on the card
+# head; recurrentgemma-9b-smoke with it, mamba2-780m-smoke without), as
+# processes of their own on the card
 # ---------------------------------------------------------------------------
 
 def run_launch():
@@ -2931,7 +2936,11 @@ def run_launch():
                 ("router", ["--role", "router"]),
                 ("lm_smoke", ["--arch", "qwen2-7b-smoke", "--pq-head"]),
                 ("lm_qwen2_7b", ["--arch", "qwen2-7b", "--pq-head",
-                                 "--tokens", "8"])):
+                                 "--tokens", "8"]),
+                ("lm_recurrentgemma_smoke", ["--arch",
+                                             "recurrentgemma-9b-smoke",
+                                             "--pq-head"]),
+                ("lm_mamba2_smoke", ["--arch", "mamba2-780m-smoke"])):
             t0 = time.perf_counter()
             r = subprocess.run(
                 [sys.executable, "-m", "repro_torch.launch.serve", *extra],
@@ -2951,7 +2960,8 @@ def run_launch():
                 out[name]["status"] = status[0]
             if name.startswith("lm_"):
                 gen = [ln for ln in lines if ln.startswith("generated (")]
-                check(len(gen) == 1 and "head=pq-hybrid" in gen[0],
+                head = "pq-hybrid" if "--pq-head" in extra else "exact"
+                check(len(gen) == 1 and f"head={head}" in gen[0],
                       f"launch.serve {' '.join(extra)}: {lines}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3237,21 +3247,61 @@ DECODE_REL = 3e-2       # tests/test_models.py:72-73, decode against forward
 DECODE_REL_F32 = 1e-4   # the same check in f32: tests/test_torch_models.py
 
 
+def model_batch(torch, cfg, g, b, s) -> dict:
+    """Seeded inputs of the config's frontend on the card: token ids (B, S)
+    or embeddings (B, S, D), and ``cond`` (B, Tc, D) where its layers
+    attend over one."""
+    if cfg.frontend == "tokens":
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                         generator=g, device="cuda")}
+    else:
+        batch = {"embeds": torch.randn((b, s, cfg.d_model), generator=g,
+                                       device="cuda")}
+    if cfg.num_cond_tokens:
+        batch["cond"] = torch.randn((b, cfg.num_cond_tokens, cfg.d_model),
+                                    generator=g, device="cuda")
+    return batch
+
+
 def decode_vs_forward(torch, model, params, g, b=2, s=32) -> float:
     """prefill(S - 1) + decode(1) against the teacher-forced forward's last
-    position, on random tokens: the max relative error, as the reference's
+    position, on random inputs: the max relative error, as the reference's
     test_decode_matches_forward reads it."""
-    tokens = torch.randint(0, model.cfg.vocab_size, (b, s), generator=g,
-                           device="cuda")
-    full, _ = model.forward(params, {"tokens": tokens})
+    batch = model_batch(torch, model.cfg, g, b, s)
+    full, _ = model.forward(params, batch)
     want = full[:, -1].float()
     del full
-    _, state = model.prefill(params, {"tokens": tokens[:, :s - 1]}, 64)
-    got, _ = model.decode_step(params, state, tokens[:, s - 1])
+    key = "tokens" if "tokens" in batch else "embeds"
+    pre = {**batch, key: batch[key][:, :s - 1]}
+    _, state = model.prefill(params, pre, 64)
+    last = (batch[key][:, s - 1] if key == "tokens"
+            else batch[key][:, s - 1:s])
+    got, _ = model.decode_step(params, state, last)
     check(got.shape == want.shape and bool(torch.isfinite(got).all()),
           f"{model.cfg.name}: decode logits {tuple(got.shape)} are not "
           f"finite {tuple(want.shape)}")
     return float((got.float() - want).abs().max() / want.abs().max())
+
+
+def smoke_decode_rels(torch, names) -> dict:
+    """decode against forward in f32 on each smoke config (MoE at
+    capacity_factor 16, as the reference's test): the rel of each, held
+    under ``DECODE_REL_F32``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    rels = {}
+    for name in names:
+        cfg = dataclasses.replace(get_config(name), dtype="float32")
+        if cfg.family == "moe":
+            cfg = dataclasses.replace(cfg, capacity_factor=16.0)
+        model = Model(cfg)
+        g = torch.Generator(device="cuda").manual_seed(cfg.d_model)
+        rel = decode_vs_forward(torch, model,
+                                model.init(g, device="cuda"), g)
+        check(rel < DECODE_REL_F32,
+              f"{name} (f32): decode vs forward rel {rel}")
+        rels[name] = rel
+    return rels
 
 
 def token_spread(tokens) -> dict:
@@ -3337,47 +3387,62 @@ def lockstep_decode(torch, ops, routes: dict, prompt) -> dict:
             for name, loop in loops.items()}
 
 
-def run_lm_decode(torch) -> dict:
-    """The decode loop at qwen2-7b's full width and depth (28 layers, d 3584,
-    GQA 28 / 4, d_ff 18944, V 152064), random weights from ``Model.init``
-    with a seeded ``torch.Generator`` on the card, in bf16 from
-    ``ServeSession.create`` on, through ``greedy_generate`` on the f32 params
-    with the exact head and with the PQ head (``cuda``: K1 at K = 1792 a
-    step).  Fails unless decode equals forward within the reference's rel
-    3e-2 (and within 1e-4 on the four dense smoke configs in f32), every PQ
-    step launches K1 exactly once and the exact route never, the
-    spelled-out timed loop (``lockstep_decode``, on sessions built after
-    the ``greedy_generate`` calls) gives ``greedy_generate``'s tokens, one
-    step of each route runs under ``set_sync_debug_mode("error")``, and
-    ``max_memory_allocated`` stays under 70 GB.  Reports, at B = 1 and 32,
-    ms a step (median of CUDA-event readings, host work included, the two
-    routes in lockstep), tokens/s, the head's ms inside a step, launches
-    and device time a step (torch.profiler), PQ-vs-exact token agreement
-    beside the distinct tokens each route produced and the exact head's
-    top-1 margins; and the head's build seconds.  Returns K1's launches on
-    the main path."""
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
+def moe_drop_share(torch, sess, prompt) -> dict:
+    """The (token, expert) assignments that a prefill of ``prompt`` drops
+    at the config's own capacity_factor, over every MoE layer: each MoE
+    call of that prefill also routes its input through ``moe_route`` and
+    counts the assignments past capacity."""
+    from repro_torch.models import mlp as mlp_mod
+    kept, total = [], 0
+    moe = mlp_mod.moe
+
+    def counting(x, p, cfg):
+        nonlocal total
+        in_cap = mlp_mod.moe_route(x, p, cfg)[4]
+        kept.append(in_cap.sum())
+        total += in_cap.numel()
+        return moe(x, p, cfg)
+
+    mlp_mod.moe = counting
+    try:
+        sess.prefill({"tokens": prompt})
+    finally:
+        mlp_mod.moe = moe
+    dropped = total - int(torch.stack(kept).sum())
+    return {"assignments": total, "dropped": dropped,
+            "dropped_share": dropped / total, "moe_layers": len(kept),
+            "capacity_factor": sess.model.cfg.capacity_factor}
+
+
+def decode_cell(torch, cfg, *, pq: bool, check_cfg=None) -> tuple:
+    """One model's decode loop at ``cfg``'s width and depth, random weights
+    from ``Model.init`` with a seeded ``torch.Generator`` on the card, in
+    the config's bf16 from ``ServeSession.create`` on: ``greedy_generate``
+    on the f32 params at B = 1 and 32 with the exact head and, with ``pq``,
+    the PQ head (``cuda``: K1 at K = d / 2 a step); then one session (its
+    PQ head built once, as ``greedy_generate`` builds it) after which the
+    f32 tree goes, and the exact route on its bf16 layers.  Fails unless
+    decode equals forward within the reference's rel 3e-2, and within
+    1e-4 on the f32 tree in f32 (on ``check_cfg``'s model when given: MoE
+    at a raised capacity_factor),
+    every PQ step launches K1 exactly once and the exact route never, the
+    spelled-out timed loop (``lockstep_decode``) gives ``greedy_generate``'s
+    tokens, and one step of each route runs under
+    ``set_sync_debug_mode("error")``.  Reports, at B = 1 and 32, ms a step
+    (median of CUDA-event readings, host work included, the routes in
+    lockstep), tokens/s, the head's ms inside a step, launches and device
+    time a step (torch.profiler), the distinct tokens of each route, the
+    exact head's top-1 margins, PQ-vs-exact token agreement and K1 at the
+    head's shapes (``head_k1_reading``).  Returns (the cell's fields, K1's
+    launches on the main path, the session)."""
+    from repro_torch.core.pq import adc_lut
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.ref import PLAIN_CALLS
     from repro_torch.models import Model
+    from repro_torch.models.common import compute_dtype
     from repro_torch.serve import ServeSession, greedy_generate
 
-    t_phase = time.perf_counter()
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    smokes = {}
-    for name in DENSE_SMOKES:
-        cfg = dataclasses.replace(get_config(name), dtype="float32")
-        model = Model(cfg)
-        g = torch.Generator(device="cuda").manual_seed(cfg.d_model)
-        rel = decode_vs_forward(torch, model,
-                                model.init(g, device="cuda"), g)
-        check(rel < DECODE_REL_F32,
-              f"{name} (f32): decode vs forward rel {rel}")
-        smokes[name] = rel
-
-    cfg = get_config(DECODE_ARCH)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     model = Model(cfg)
     g = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
@@ -3388,57 +3453,69 @@ def run_lm_decode(torch) -> dict:
     prompts = {b: torch.randint(0, cfg.vocab_size, (b, DECODE_PROMPT),
                                 generator=g, device="cuda")
                for b in DECODE_BATCHES}
+    route_list = (("exact", False), ("pq", True)) if pq else (
+        ("exact", False),)
 
     # the main path, as a user calls it: greedy_generate on the f32 tree,
     # every count at zero just before each call
     launches, tokens = 0, {}
     for b in DECODE_BATCHES:
-        for route, pq in (("exact", False), ("pq", True)):
+        for route, use_pq in route_list:
             ops.reset_counts()
             toks = greedy_generate(model, params, prompts[b], DECODE_TOKENS,
-                                   DECODE_MAX_LEN, use_pq_head=pq)
+                                   DECODE_MAX_LEN, use_pq_head=use_pq)
             torch.cuda.synchronize()
             got = dict(ops.LAUNCHES)
-            want_k1 = DECODE_TOKENS if pq else 0
+            want_k1 = DECODE_TOKENS if use_pq else 0
             check(got["lut16_adc"] == want_k1 == sum(got.values())
                   and sum(PLAIN_CALLS.values()) == 0,
-                  f"{route}, B = {b}: greedy_generate launched {got} "
-                  f"(K1 {want_k1} expected), plain {dict(PLAIN_CALLS)}")
+                  f"{cfg.name} {route}, B = {b}: greedy_generate launched "
+                  f"{got} (K1 {want_k1} expected), plain "
+                  f"{dict(PLAIN_CALLS)}")
             launches += got["lut16_adc"]
             check(tuple(toks.shape) == (b, DECODE_TOKENS)
                   and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
-                  f"{route}, B = {b}: tokens {tuple(toks.shape)} outside "
-                  f"the vocabulary")
+                  f"{cfg.name} {route}, B = {b}: tokens "
+                  f"{tuple(toks.shape)} outside the vocabulary")
             tokens[b, route] = toks
 
-    # the timed loop's sessions: one build of the PQ head, as
-    # greedy_generate builds it, and the exact route on its bf16 layers;
-    # then the f32 tree goes
+    # decode against forward on the f32 tree in f32: what the bf16 check
+    # below leaves to rounding
+    f32_cfg = dataclasses.replace(check_cfg or cfg, dtype="float32")
+    rel_f32 = decode_vs_forward(torch, Model(f32_cfg), params, g)
+    check(rel_f32 < DECODE_REL_F32,
+          f"{cfg.name} (f32): decode vs forward rel {rel_f32}")
+
+    # the timed loop's session: one build of the PQ head, and the exact
+    # route on its bf16 layers; then the f32 tree goes
     t0 = time.perf_counter()
-    pq_sess = ServeSession.create(model, params, DECODE_MAX_LEN,
-                                  use_pq_head=True, head_backend="cuda")
+    sess = ServeSession.create(model, params, DECODE_MAX_LEN,
+                               use_pq_head=pq,
+                               head_backend="cuda" if pq else None)
     torch.cuda.synchronize()
     create_s = time.perf_counter() - t0
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    exact_sess = dataclasses.replace(pq_sess, pq_head=None, pq_params=None)
-    rel = decode_vs_forward(torch, model, pq_sess.params, g)
-    check(rel < DECODE_REL, f"{DECODE_ARCH}: decode vs forward rel {rel}")
+    exact_sess = dataclasses.replace(sess, pq_head=None, pq_params=None)
+    rel = decode_vs_forward(torch, Model(check_cfg or cfg), sess.params, g)
+    check(rel < DECODE_REL, f"{cfg.name}: decode vs forward rel {rel}")
 
     by_b = {}
     for b in DECODE_BATCHES:
         prompt = prompts[b]
-        sessions = {"exact": (exact_sess, False), "pq": (pq_sess, True)}
+        sessions = {"exact": (exact_sess, False)}
+        if pq:
+            sessions["pq"] = (sess, True)
         routes, spread = {}, {}
         timed = lockstep_decode(torch, ops, sessions, prompt)
-        for route, (sess, pq) in sessions.items():
+        for route, (r_sess, use_pq) in sessions.items():
             t_toks, ms, k1, step = timed[route]
             check(torch.equal(t_toks, tokens[b, route]),
-                  f"{route}, B = {b}: the timed loop's tokens differ from "
-                  f"greedy_generate's")
-            check(all(n == (1 if pq else 0) for n in k1),
-                  f"{route}, B = {b}: K1 launches a step {k1}")
+                  f"{cfg.name} {route}, B = {b}: the timed loop's tokens "
+                  f"differ from greedy_generate's")
+            check(all(n == (1 if use_pq else 0) for n in k1),
+                  f"{cfg.name} {route}, B = {b}: K1 launches a step {k1}")
             if b == DECODE_BATCHES[0]:
                 torch.cuda.synchronize()
                 torch.cuda.set_sync_debug_mode("error")
@@ -3448,15 +3525,18 @@ def run_lm_decode(torch) -> dict:
                     torch.cuda.set_sync_debug_mode(0)
             # the head inside a step, on this route's last hidden state
             hidden, _ = model.decode_step(
-                sess.params, model.init_decode_state(
-                    sess.params, b, DECODE_MAX_LEN), t_toks[:, -1], True)
+                r_sess.params, model.init_decode_state(
+                    r_sess.params, b, DECODE_MAX_LEN), t_toks[:, -1], True)
             counts = torch.zeros((b, cfg.vocab_size), device="cuda")
-            if pq:
-                head_ms = cuda_ms(lambda: sess.next_token(hidden, counts))
+            if use_pq:
+                head_ms = cuda_ms(lambda: r_sess.next_token(hidden, counts))
+                k1_reading = head_k1_reading(
+                    torch, ops, ref, r_sess.pq_params,
+                    adc_lut(hidden, r_sess.pq_params.codebooks), sms)
             else:
-                h16 = hidden.to(torch.bfloat16)[:, None]
-                head_ms = cuda_ms(lambda: sess.next_token(
-                    model._head(sess.params, h16)[:, 0], counts))
+                h16 = hidden.to(compute_dtype(cfg))[:, None]
+                head_ms = cuda_ms(lambda: r_sess.next_token(
+                    model._head(r_sess.params, h16)[:, 0], counts))
             prof = device_profile(torch, step)
             prof.pop("k2", None)
             step_ms = statistics.median(ms)
@@ -3467,29 +3547,129 @@ def run_lm_decode(torch) -> dict:
                 "tokens_per_s": b * 1e3 / step_ms,
                 "head_ms": head_ms, "head_share": head_ms / step_ms,
                 "k1_launches_per_step": k1[0], "profile": prof}
+            if use_pq:
+                routes[route]["k1"] = k1_reading
             spread[route] = token_spread(tokens[b, route])
-        agree = float((tokens[b, "exact"] == tokens[b, "pq"]).float().mean())
-        by_b[str(b)] = {"pq_exact_token_agreement": agree,
-                        "distinct_tokens": spread,
-                        "exact_top1_margin": top1_margins(
-                            torch, model, exact_sess.params, prompt,
-                            tokens[b, "exact"]),
-                        **routes}
+        row = {"distinct_tokens": spread,
+               "exact_top1_margin": top1_margins(
+                   torch, model, exact_sess.params, prompt,
+                   tokens[b, "exact"]),
+               **routes}
+        if pq:
+            row["pq_exact_token_agreement"] = float(
+                (tokens[b, "exact"] == tokens[b, "pq"]).float().mean())
+        by_b[str(b)] = row
+    fields = {"config": cfg.name, "family": cfg.family,
+              "layers": cfg.num_layers, "d_model": cfg.d_model,
+              "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+              "decode_rel": rel, "decode_bound": DECODE_REL,
+              "decode_rel_f32": rel_f32,
+              "decode_f32_bound": DECODE_REL_F32, "init_s": init_s, "params_f32_bytes": params_bytes,
+              "session_create_s": create_s,
+              "session_device_bytes": tensor_bytes(sess.params)
+              + (tensor_bytes(sess.pq_params) if pq else 0),
+              "by_batch": by_b}
+    if pq:
+        fields["head_build_s"] = sum(sess.pq_params.build_seconds.values())
+        fields["head_build_stage_s"] = sess.pq_params.build_seconds
+    return fields, launches, sess
+
+
+def run_lm_decode(torch) -> dict:
+    """The decode loop at qwen2-7b's full width and depth (28 layers, d 3584,
+    GQA 28 / 4, d_ff 18944, V 152064) through ``decode_cell`` with the exact
+    and the PQ head, and decode against forward within 1e-4 on the four
+    dense smoke configs in f32.  Fails unless ``max_memory_allocated``
+    stays under 70 GB.  Returns K1's launches on the main path."""
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    smokes = smoke_decode_rels(torch, DENSE_SMOKES)
+    fields, launches, _ = decode_cell(torch, get_config(DECODE_ARCH),
+                                      pq=True)
     peak = torch.cuda.max_memory_allocated()
     check(peak < 70e9, f"lm_decode max_memory_allocated {peak} >= 70 GB")
-    emit("lm_decode", config=DECODE_ARCH, layers=cfg.num_layers,
-         d_model=cfg.d_model, vocab=cfg.vocab_size, dtype=cfg.dtype,
-         prompt=DECODE_PROMPT, new_tokens=DECODE_TOKENS,
-         max_len=DECODE_MAX_LEN, smoke_f32_decode_rel=smokes,
-         smoke_f32_decode_bound=DECODE_REL_F32, decode_rel=rel,
-         decode_bound=DECODE_REL, init_s=init_s,
-         params_f32_bytes=params_bytes,
-         session_create_s=create_s,
-         head_build_s=sum(pq_sess.pq_params.build_seconds.values()),
-         head_build_stage_s=pq_sess.pq_params.build_seconds,
-         session_device_bytes=tensor_bytes(pq_sess.params)
-         + tensor_bytes(pq_sess.pq_params),
-         by_batch=by_b, max_memory_allocated=peak,
+    emit("lm_decode", **fields, prompt=DECODE_PROMPT,
+         new_tokens=DECODE_TOKENS, max_len=DECODE_MAX_LEN,
+         smoke_f32_decode_rel=smokes,
+         smoke_f32_decode_bound=DECODE_REL_F32, max_memory_allocated=peak,
+         seconds=time.perf_counter() - t_phase)
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# lm_families: the other families of the LM zoo; recurrentgemma-9b at full
+# width and depth through the exact and the PQ head (K1 at V = 256000,
+# K = 2048 a step), mamba2-780m at full size and qwen2-moe-a2.7b at full
+# width (8 of 24 layers) through the exact head
+# ---------------------------------------------------------------------------
+
+FAMILY_SMOKES = ("qwen2-moe-a2.7b-smoke", "qwen3-moe-235b-a22b-smoke",
+                 "mamba2-780m-smoke", "recurrentgemma-9b-smoke",
+                 "llama-3.2-vision-90b-smoke", "musicgen-medium-smoke")
+FAMILY_ARCH = "recurrentgemma-9b"      # 12 x (rglru, rglru, lattn) + 2
+SSM_ARCH = "mamba2-780m"               # 48 ssd layers
+MOE_ARCH, MOE_LAYERS = "qwen2-moe-a2.7b", 8   # all 24 need 86 GB
+
+
+def run_lm_families(torch) -> dict:
+    """The other families through ``decode_cell``: recurrentgemma-9b at full
+    width and depth (RG-LRU, the local-attention ring at W = max_len 128,
+    MQA at head_dim 256, GeGLU; V 256000) with the exact and the PQ head;
+    mamba2-780m at full width and depth and qwen2-moe-a2.7b at full width
+    cut to 8 of its 24 layers (decode held to forward at capacity_factor
+    16; the prompt's prefill read for dropped assignments at its own 1.25)
+    with the exact head; decode against forward within 1e-4 on the six
+    smoke configs of these families in f32 (``cond`` and ``embeds`` seeded
+    where the config takes them).  Fails unless ``max_memory_allocated``
+    stays under 70 GB in recurrentgemma-9b's cell.  Returns K1's launches on
+    the main path."""
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    smokes = smoke_decode_rels(torch, FAMILY_SMOKES)
+    cells = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fields, launches, sess = decode_cell(torch, get_config(FAMILY_ARCH),
+                                         pq=True)
+    peak = torch.cuda.max_memory_allocated()
+    check(peak < 70e9, f"lm_families {FAMILY_ARCH} max_memory_allocated "
+          f"{peak} >= 70 GB")
+    cells[FAMILY_ARCH] = {**fields, "max_memory_allocated": peak,
+                          "seconds": time.perf_counter() - t0}
+    del sess
+    moe_cfg = dataclasses.replace(get_config(MOE_ARCH),
+                                  num_layers=MOE_LAYERS)
+    for cfg, check_cfg in (
+            (get_config(SSM_ARCH), None),
+            (moe_cfg, dataclasses.replace(moe_cfg, capacity_factor=16.0))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fields, _, sess = decode_cell(torch, cfg, pq=False,
+                                      check_cfg=check_cfg)
+        if cfg.family == "moe":
+            g = torch.Generator(device="cuda").manual_seed(1)
+            prompt = torch.randint(0, cfg.vocab_size,
+                                   (max(DECODE_BATCHES), DECODE_PROMPT),
+                                   generator=g, device="cuda")
+            fields["prefill_drops"] = moe_drop_share(torch, sess, prompt)
+            fields["cut"] = f"{MOE_LAYERS} of 24 layers"
+        cells[cfg.name] = {**fields,
+                           "max_memory_allocated":
+                           torch.cuda.max_memory_allocated(),
+                           "seconds": time.perf_counter() - t0}
+        del sess
+    emit("lm_families", cells=cells, prompt=DECODE_PROMPT,
+         new_tokens=DECODE_TOKENS, max_len=DECODE_MAX_LEN,
+         smoke_f32_decode_rel=smokes, smoke_f32_decode_bound=DECODE_REL_F32,
          seconds=time.perf_counter() - t_phase)
     return {"launches": launches}
 
@@ -3566,8 +3746,12 @@ def main() -> int:
     rows[0]["lm_head_launches"] = run_lm_head(torch)["launches"]
     # the decode loop's main path: K1 once a PQ step at qwen2-7b
     rows[0]["lm_decode_launches"] = run_lm_decode(torch)["launches"]
-    # the decode loops' closures hold the sessions in reference cycles;
-    # launch's --arch qwen2-7b process needs their ~20 GB
+    # the decode loops' closures hold the sessions in reference cycles
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the other families: K1 once a PQ step at recurrentgemma-9b
+    rows[0]["lm_families_launches"] = run_lm_families(torch)["launches"]
+    # launch's --arch qwen2-7b process needs the sessions' memory
     gc.collect()
     torch.cuda.empty_cache()
     run_launch()

@@ -3,8 +3,10 @@
 
 LM mode (``--arch``): random weights from ``--seed``, prefill a batch of
 prompts, decode ``--tokens`` tokens and report per-step latency, with either
-the exact head or the paper's PQ hybrid head (``--pq-head``).  The dense
-family runs; other families wait for ROADMAP A9b.
+the exact head or the paper's PQ hybrid head (``--pq-head``).  Every family
+whose input is token ids alone runs (dense, moe, ssm, hybrid); the vlm and
+audio configs stop as the reference's launcher does, with an error that
+names the input it does not pass (``cond``; musicgen's ``embeds``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b-smoke \
         --tokens 32 --batch 4 --pq-head

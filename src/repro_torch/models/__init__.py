@@ -1,4 +1,5 @@
-"""The LM zoo (counterpart of ``repro.models``): the dense family so far."""
+"""The LM zoo (counterpart of ``repro.models``): every family's layers and
+the ``Model`` that stacks them."""
 
 from .model import Model  # noqa: F401
 

@@ -1,26 +1,26 @@
-"""Attention layers of the dense family (counterpart of
-``repro.models.attention``): GQA self-attention over the full sequence
-(masked, or banded for long sequences) and one-token decode against a KV
-cache.
+"""Attention layers (counterpart of ``repro.models.attention``): GQA
+self-attention over the full sequence (masked, or banded for long sequences;
+full causal or a local window), cross-attention over precomputed
+conditioning K/V, one-token decode against a KV cache, and the local-window
+ring-buffer decode of the Griffin attention layers.
 
 Projections keep the reference's *grouped* layout ``wq: (D, Hkv, G, hd)``,
 ``wk``/``wv: (D, Hkv, hd)``, ``wo: (Hkv, G, hd, D)`` with ``G = Hq / Hkv``, so
 params cross between the packages leaf for leaf.  Each product is one matmul
 over the flattened head dims.  Attention is the reference's plain masked
 softmax with its ``-1e30`` fill (not ``scaled_dot_product_attention``, whose
-masking and summation order differ).  Cross-attention, windowed
-self-attention and the local-window ring-buffer decode wait for the other
-families (ROADMAP A9b).
+masking and summation order differ).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .common import apply_rope, dense_init
+from .common import apply_rope, compute_dtype, dense_init
 
 __all__ = ["NEG_INF", "init_attention", "banded_causal_attention",
-           "full_attention", "self_attention", "decode_self_attention"]
+           "full_attention", "self_attention", "cross_attention", "cond_kv",
+           "decode_self_attention", "decode_local_attention"]
 
 NEG_INF = -1e30
 
@@ -165,22 +165,74 @@ def full_attention(q, k, v, *, causal: bool, dtype=torch.bfloat16):
 # layer-level entry points
 # ---------------------------------------------------------------------------
 
-def self_attention(x, p, cfg, angles, *, chunk: int = 1024):
-    """Causal self-attention over the full sequence (prefill): banded when
-    S > chunk and chunk divides S, else masked full attention.  ``angles``:
-    ``rope_angles`` at the sequence's positions, shared across layers.
-    Returns (out (B, S, D), (k, v)) with k, v (B, S, Hkv, hd) after RoPE."""
+def self_attention(x, p, cfg, angles, *, window: int = 0,
+                   chunk: int = 1024):
+    """Causal self-attention over the full sequence (prefill), over the last
+    ``window`` positions when ``window`` > 0: banded (windowed) when S >
+    window > 0, banded when S > chunk and chunk divides S, else masked full
+    attention, as the reference picks.  ``angles``: ``rope_angles`` at the
+    sequence's positions, shared across layers.  Returns (out (B, S, D),
+    (k, v)) with k, v (B, S, Hkv, hd) after RoPE."""
     dtype = x.dtype
     s = x.shape[1]
     q = _project_q(x, p, dtype)
     k, v = _project_kv(x, p, dtype)
     q = _rope_grouped(q, angles)
     k = apply_rope(k, angles)
-    if s > chunk and s % chunk == 0:
-        attn = banded_causal_attention(q, k, v, chunk=chunk, dtype=dtype)
+    if window > 0 and s > window:
+        c = chunk if s % chunk == 0 else _largest_divisor_chunk(s, chunk)
+        attn = banded_causal_attention(q, k, v, chunk=c, window=window,
+                                       dtype=dtype)
+    elif s > chunk and s % chunk == 0:
+        attn = banded_causal_attention(q, k, v, chunk=chunk, window=window,
+                                       dtype=dtype)
     else:
         attn = full_attention(q, k, v, causal=True, dtype=dtype)
     return _out_proj(attn, p, dtype), (k, v)
+
+
+def _largest_divisor_chunk(s: int, chunk: int) -> int:
+    for c in range(min(chunk, s), 0, -1):
+        if s % c == 0:
+            return c
+    return s
+
+
+def cross_attention(x, ckv, p, cfg):
+    """x (B,S,D) attends over precomputed conditioning K/V ``ckv`` (no
+    mask, no RoPE)."""
+    dtype = x.dtype
+    q = _project_q(x, p, dtype)
+    k, v = ckv
+    attn = full_attention(q, k, v, causal=False, dtype=dtype)
+    return _out_proj(attn, p, dtype)
+
+
+def cond_kv(cond_embed, p, cfg):
+    """Cross-attention K/V (B, Tc, Hkv, hd) from conditioning embeddings
+    (B, Tc, D), in the compute dtype."""
+    dtype = compute_dtype(cfg)
+    return _project_kv(cond_embed.to(dtype), p, dtype)
+
+
+def _decode_qkv(x, p, angles):
+    dtype = x.dtype
+    q = _rope_grouped(_project_q(x, p, dtype), angles)
+    k_new, v_new = _project_kv(x, p, dtype)
+    return q, apply_rope(k_new, angles), v_new
+
+
+def _attend_one(q, cache_k, cache_v, valid, p):
+    """The new token's query (B,1,Hkv,G,hd) over the cache's slots where
+    ``valid`` (broadcast over (B,Hkv,G,slots)) holds, -1e30 elsewhere."""
+    dtype = q.dtype
+    hd = q.shape[4]
+    sc = torch.einsum("bhgk,bmhk->bhgm", q[:, 0],
+                      cache_k.to(dtype)).float() * hd ** -0.5
+    pr = torch.softmax(torch.where(valid, sc, NEG_INF), dim=-1)
+    out = torch.einsum("bhgm,bmhk->bhgk", pr.to(dtype),
+                       cache_v.to(dtype))[:, None]            # (B,1,Hkv,G,hd)
+    return _out_proj(out, p, dtype)
 
 
 def decode_self_attention(x, p, cfg, cache_k, cache_v, cur_index: int,
@@ -191,24 +243,34 @@ def decode_self_attention(x, p, cfg, cache_k, cache_v, cur_index: int,
     query then attends over all S_max slots under the mask
     ``slot <= cur_index`` (-1e30 elsewhere).  Returns (out, cache_k,
     cache_v)."""
-    dtype = x.dtype
     s_max = cache_k.shape[1]
     if not 0 <= cur_index < s_max:
         raise IndexError(f"decode position {cur_index} is outside the "
                          f"{s_max}-slot cache")
-    q = _project_q(x, p, dtype)
-    k_new, v_new = _project_kv(x, p, dtype)
-    q = _rope_grouped(q, angles)
-    k_new = apply_rope(k_new, angles)
+    q, k_new, v_new = _decode_qkv(x, p, angles)
     cache_k[:, cur_index] = k_new[:, 0].to(cache_k.dtype)
     cache_v[:, cur_index] = v_new[:, 0].to(cache_v.dtype)
-    hd = q.shape[4]
-    qg = q[:, 0]                                              # (B,Hkv,G,hd)
-    sc = torch.einsum("bhgk,bmhk->bhgm", qg,
-                      cache_k.to(dtype)).float() * hd ** -0.5
     valid = torch.arange(s_max, device=x.device) <= cur_index
-    sc = torch.where(valid, sc, NEG_INF)
-    pr = torch.softmax(sc, dim=-1)
-    out = torch.einsum("bhgm,bmhk->bhgk", pr.to(dtype),
-                       cache_v.to(dtype))[:, None]            # (B,1,Hkv,G,hd)
-    return _out_proj(out, p, dtype), cache_k, cache_v
+    return _attend_one(q, cache_k, cache_v, valid, p), cache_k, cache_v
+
+
+def decode_local_attention(x, p, cfg, cache_k, cache_v, cache_pos,
+                           cur_index: int, angles, *, window: int):
+    """Ring-buffer local-window decode (Griffin attention layers).
+
+    cache_{k,v}: (B, W, Hkv, hd) with W = min(window, max_len); cache_pos
+    (W,) int32 holds the absolute position stored in each slot (-1 =
+    empty).  RoPE is applied at the absolute position before caching, so
+    slots never need re-rotation.  The new K/V and position are written in
+    place at slot ``cur_index % W`` (a host int: no read-back); the query
+    attends over the slots whose position lies in (cur_index - window,
+    cur_index].  Returns (out, cache_k, cache_v, cache_pos)."""
+    slot = cur_index % cache_k.shape[1]
+    q, k_new, v_new = _decode_qkv(x, p, angles)
+    cache_k[:, slot] = k_new[:, 0].to(cache_k.dtype)
+    cache_v[:, slot] = v_new[:, 0].to(cache_v.dtype)
+    cache_pos[slot:slot + 1].fill_(cur_index)    # no host->device copy
+    valid = ((cache_pos >= 0) & (cache_pos > cur_index - window)
+             & (cache_pos <= cur_index))
+    return (_attend_one(q, cache_k, cache_v, valid, p), cache_k, cache_v,
+            cache_pos)

@@ -1,19 +1,31 @@
-"""Model orchestration for the dense family (counterpart of
-``repro.models.model``): embeddings, the layer stack, the head, teacher-forced
-prefill and one-token decode against per-layer KV caches.
+"""Model orchestration (counterpart of ``repro.models.model``): layer
+patterns, embeddings, the layer stack, the head, teacher-forced prefill and
+one-token decode for every architecture family.
 
-The reference stacks each pattern position's params over its repeats and
-walks them with ``lax.scan``; here ``params["blocks"][0]`` is a Python list
-of per-layer dicts with the reference's keys and per-layer shapes
-(``interchange.model_params_from_numpy`` unstacks the reference's tree), and
-the stack is a loop.  The reference's ``remat`` and ``unroll`` settings
-change no number and are ignored.  A decode state's ``index`` is a host int,
-so a step reads nothing back from the device, and ``decode_step`` writes the
-new K/V into the state's caches in place.
+A config's layer stack is a repeating *pattern* of layer types (Griffin:
+(rglru, rglru, lattn)); the remainder layers (when num_layers % len(pattern)
+!= 0) run after the repeats.  The reference stacks each pattern position's
+params over its repeats and walks them with ``lax.scan``; here
+``params["blocks"][pos]`` is a Python list of per-layer dicts (one a
+repeat) with the reference's keys and per-layer shapes, ``params["tail"]``
+the remainder layers' dicts (``interchange.model_params_from_numpy``
+unstacks the reference's tree), and the stack is a loop: the layer at
+(repeat r, position p) runs at depth r * len(pattern) + p, then the tail.
+Decode states keep the same layout.
 
-Only ``family="dense"`` (the ``("self",)`` pattern: GQA self-attention + a
-gated MLP a layer) is ported; other families raise ``NotImplementedError``
-(ROADMAP A9b), and ``Model.loss`` waits for the training stack (A10).
+Layer types:
+  self       GQA self-attention + gated MLP        (dense / vlm backbone)
+  lattn      local-window GQA (+MLP)               (griffin attention layers)
+  self_cross self-attn + cross-attn + MLP          (vlm image layers, musicgen)
+  moe        self-attn + mixture-of-experts        (qwen-moe family)
+  ssd        Mamba2 SSD block (no MLP)             (mamba2)
+  rglru      RG-LRU recurrent block + MLP          (griffin recurrent layers)
+
+The reference's ``remat`` and ``unroll`` settings change no number and are
+ignored.  A decode state's ``index`` is a host int, so a step reads nothing
+back from the device; ``decode_step`` writes the new K/V (and a local
+layer's slot position) into the state's caches in place.  ``Model.loss``
+waits for the training stack (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -23,30 +35,56 @@ import torch
 from ..device import resolve_device
 from . import attention as attn
 from . import mlp as mlp_mod
+from . import rglru as rglru_mod
+from . import ssm as ssm_mod
 from .common import (apply_norm, compute_dtype, dense_init, init_norm,
                      rope_angles)
 
 __all__ = ["Model", "pattern_for"]
 
+_ATTENTION_FREE = ("ssd", "rglru")
+
 
 def pattern_for(cfg) -> tuple[str, ...]:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; it waits "
-            f"for ROADMAP A9b (the port runs the dense family)")
+    if cfg.family == "ssm":
+        return ("ssd",)
+    if cfg.family == "hybrid":
+        return ("rglru", "rglru", "lattn")[: max(cfg.rglru_pattern, 1)]
+    if cfg.family == "moe":
+        return ("moe",)
+    if cfg.family == "vlm":
+        k = cfg.cross_attn_every
+        return ("self",) * (k - 1) + ("self_cross",) if k > 1 else ("self_cross",)
+    if cfg.family == "audio":
+        return ("self_cross",)
     return ("self",)
 
 
 # ---------------------------------------------------------------------------
-# per-layer init / apply / decode ("self": attention + gated MLP)
+# per-type init / apply / decode
 # ---------------------------------------------------------------------------
 
-def _init_layer(generator, cfg, device) -> dict:
+def _init_layer(generator, cfg, typ: str, device) -> dict:
     d = cfg.d_model
-    return {"ln1": init_norm(d, cfg.norm, device),
-            "attn": attn.init_attention(generator, cfg),
-            "ln2": init_norm(d, cfg.norm, device),
-            "mlp": mlp_mod.init_mlp(generator, cfg)}
+    if typ == "ssd":
+        return {"ln1": init_norm(d, cfg.norm, device),
+                "ssd": ssm_mod.init_ssd(generator, cfg)}
+    if typ == "rglru":
+        return {"ln1": init_norm(d, cfg.norm, device),
+                "rec": rglru_mod.init_rglru(generator, cfg),
+                "ln2": init_norm(d, cfg.norm, device),
+                "mlp": mlp_mod.init_mlp(generator, cfg)}
+    p = {"ln1": init_norm(d, cfg.norm, device),
+         "attn": attn.init_attention(generator, cfg),
+         "ln2": init_norm(d, cfg.norm, device)}
+    if typ == "moe":
+        p["moe"] = mlp_mod.init_moe(generator, cfg)
+    else:
+        p["mlp"] = mlp_mod.init_mlp(generator, cfg)
+    if typ == "self_cross":
+        p["lnx"] = init_norm(d, cfg.norm, device)
+        p["xattn"] = attn.init_attention(generator, cfg, cross=True)
+    return p
 
 
 def _angles(cfg, positions):
@@ -54,46 +92,141 @@ def _angles(cfg, positions):
                        cfg.rope_fraction)
 
 
-def _apply_layer(x, p, cfg, angles):
-    a_out, kv = attn.self_attention(apply_norm(x, p["ln1"], cfg.norm),
-                                    p["attn"], cfg, angles,
-                                    chunk=cfg.attn_chunk)
+def _ffn(x, p, cfg, typ: str):
+    """The second half of an attention layer: the MoE or the gated MLP.
+    Returns (x, aux)."""
+    if typ == "moe":
+        out, aux = mlp_mod.moe(apply_norm(x, p["ln2"], cfg.norm), p["moe"],
+                               cfg)
+        return x + out, aux
+    return x + mlp_mod.mlp(apply_norm(x, p["ln2"], cfg.norm), p["mlp"],
+                           cfg), None
+
+
+def _need_cond(cond, cfg):
+    if cond is None:
+        raise ValueError(f"{cfg.name}: its self_cross layers attend over "
+                         f"conditioning embeddings; pass batch['cond'] "
+                         f"(B, {cfg.num_cond_tokens}, {cfg.d_model})")
+    return cond
+
+
+def _apply_layer(x, p, cfg, typ: str, cond, angles, max_len=None):
+    """One layer over the whole sequence.  Returns (x, aux or None, the
+    layer's decode state after the sequence, shaped as
+    ``_state_init_layer``'s; an attention layer's only when ``max_len``, the
+    caches' length, is given)."""
+    if typ == "ssd":
+        out, st = ssm_mod.ssd_block(apply_norm(x, p["ln1"], cfg.norm),
+                                    p["ssd"], cfg, return_state=True)
+        return x + out, None, st
+    if typ == "rglru":
+        out, st = rglru_mod.rglru_block(apply_norm(x, p["ln1"], cfg.norm),
+                                        p["rec"], cfg, return_state=True)
+        x = x + out
+        x = x + mlp_mod.mlp(apply_norm(x, p["ln2"], cfg.norm), p["mlp"], cfg)
+        return x, None, st
+    window = cfg.local_window if typ == "lattn" else 0
+    a_out, (k, v) = attn.self_attention(apply_norm(x, p["ln1"], cfg.norm),
+                                        p["attn"], cfg, angles,
+                                        window=window, chunk=cfg.attn_chunk)
     x = x + a_out
-    x = x + mlp_mod.mlp(apply_norm(x, p["ln2"], cfg.norm), p["mlp"], cfg)
-    return x, kv
+    st = None
+    if max_len is not None:
+        st = (_ring_state(k, v, cfg, max_len) if typ == "lattn"
+              else {"k": _pad_cache(k, max_len), "v": _pad_cache(v, max_len)})
+    if typ == "self_cross":
+        ck, cv = attn.cond_kv(_need_cond(cond, cfg), p["xattn"], cfg)
+        if st is not None:
+            st["ck"], st["cv"] = ck, cv
+        x = x + attn.cross_attention(apply_norm(x, p["lnx"], cfg.norm),
+                                     (ck, cv), p["xattn"], cfg)
+    x, aux = _ffn(x, p, cfg, typ)
+    return x, aux, st
 
 
-def _apply_layer_prefill(x, p, cfg, angles, max_len: int):
-    """Forward one layer AND produce its decode state (teacher-forced
-    prefill), shaped as ``_state_init_layer``'s."""
-    b, s, _ = x.shape
+def _pad_cache(t, max_len: int):
+    b, s = t.shape[:2]
     if s > max_len:
         raise ValueError(f"a {s}-token prompt does not fit max_len "
                          f"{max_len}")
-    x, (k, v) = _apply_layer(x, p, cfg, angles)
-
-    def pad_cache(t):
-        out = torch.zeros((b, max_len) + t.shape[2:], dtype=x.dtype,
-                          device=x.device)
-        out[:, :s] = t.to(x.dtype)
-        return out
-
-    return x, {"k": pad_cache(k), "v": pad_cache(v)}
+    out = t.new_zeros((b, max_len) + t.shape[2:])
+    out[:, :s] = t
+    return out
 
 
-def _state_init_layer(cfg, batch: int, max_len: int, dtype, device) -> dict:
-    shape = (batch, max_len, cfg.effective_kv_heads, cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+def _ring_state(k, v, cfg, max_len: int) -> dict:
+    """A local layer's ring cache after the prompt: position p lives in slot
+    p % W, W = min(local_window, max_len); empty slots hold position -1."""
+    b, s = k.shape[:2]
+    dtype, dev = k.dtype, k.device
+    w = min(cfg.local_window, max_len)
+    if s >= w:
+        shift = (s - w) % w
+        return {"k": torch.roll(k[:, -w:], shift, dims=1),
+                "v": torch.roll(v[:, -w:], shift, dims=1),
+                "pos": torch.roll(torch.arange(s - w, s, dtype=torch.int32,
+                                               device=dev), shift)}
+    st = _state_init_layer(cfg, "lattn", b, max_len, dtype, dev)
+    st["k"][:, :s] = k
+    st["v"][:, :s] = v
+    st["pos"][:s] = torch.arange(s, dtype=torch.int32, device=dev)
+    return st
 
 
-def _decode_layer(x, p, cfg, state, cur_index: int, angles):
-    out, k, v = attn.decode_self_attention(
-        apply_norm(x, p["ln1"], cfg.norm), p["attn"], cfg, state["k"],
-        state["v"], cur_index, angles)
+def _state_init_layer(cfg, typ: str, batch: int, max_len: int, dtype,
+                      device) -> dict:
+    hkv, hd = cfg.effective_kv_heads, cfg.resolved_head_dim
+    if typ == "ssd":
+        return ssm_mod.ssd_decode_init(cfg, batch, dtype, device)
+    if typ == "rglru":
+        return rglru_mod.rglru_decode_init(cfg, batch, dtype, device)
+
+    def zeros(n):
+        return torch.zeros((batch, n, hkv, hd), dtype=dtype, device=device)
+
+    if typ == "lattn":
+        w = min(cfg.local_window, max_len)
+        return {"k": zeros(w), "v": zeros(w),
+                "pos": torch.full((w,), -1, dtype=torch.int32,
+                                  device=device)}
+    st = {"k": zeros(max_len), "v": zeros(max_len)}
+    if typ == "self_cross":
+        st["ck"] = zeros(cfg.num_cond_tokens)
+        st["cv"] = zeros(cfg.num_cond_tokens)
+    return st
+
+
+def _decode_layer(x, p, cfg, typ: str, state, cur_index: int, angles):
+    if typ == "ssd":
+        out, st = ssm_mod.ssd_decode_step(apply_norm(x, p["ln1"], cfg.norm),
+                                          p["ssd"], cfg, state)
+        return x + out, st
+    if typ == "rglru":
+        out, st = rglru_mod.rglru_decode_step(
+            apply_norm(x, p["ln1"], cfg.norm), p["rec"], cfg, state)
+        x = x + out
+        x = x + mlp_mod.mlp(apply_norm(x, p["ln2"], cfg.norm), p["mlp"], cfg)
+        return x, st
+    if typ == "lattn":
+        out, k, v, pos = attn.decode_local_attention(
+            apply_norm(x, p["ln1"], cfg.norm), p["attn"], cfg, state["k"],
+            state["v"], state["pos"], cur_index, angles,
+            window=cfg.local_window)
+        st = {"k": k, "v": v, "pos": pos}
+    else:
+        out, k, v = attn.decode_self_attention(
+            apply_norm(x, p["ln1"], cfg.norm), p["attn"], cfg, state["k"],
+            state["v"], cur_index, angles)
+        st = {"k": k, "v": v}
     x = x + out
-    x = x + mlp_mod.mlp(apply_norm(x, p["ln2"], cfg.norm), p["mlp"], cfg)
-    return x, {"k": k, "v": v}
+    if typ == "self_cross":
+        st["ck"], st["cv"] = state["ck"], state["cv"]
+        x = x + attn.cross_attention(apply_norm(x, p["lnx"], cfg.norm),
+                                     (state["ck"], state["cv"]), p["xattn"],
+                                     cfg)
+    x, _ = _ffn(x, p, cfg, typ)
+    return x, st
 
 
 # ---------------------------------------------------------------------------
@@ -101,16 +234,28 @@ def _decode_layer(x, p, cfg, state, cur_index: int, angles):
 # ---------------------------------------------------------------------------
 
 class Model:
-    """Functional model wrapper: init / forward / prefill / decode.
-
-    The dense pattern has one layer type, so the stack is the one list
-    ``params["blocks"][0]`` (``cfg.num_layers`` layers) and ``tail`` stays
-    empty; both keep the reference's tree."""
+    """Functional model wrapper: init / forward / prefill / decode."""
 
     def __init__(self, cfg):
         self.cfg = cfg
         self.pattern = pattern_for(cfg)
-        self.repeats = cfg.num_layers
+        self.repeats = cfg.num_layers // len(self.pattern)
+        self.remainder = self.pattern[: cfg.num_layers % len(self.pattern)]
+
+    def layers(self, tree):
+        """(type, entry) of each layer of a params or state tree in depth
+        order: repeat by repeat through the pattern, then the tail."""
+        for r in range(self.repeats):
+            for pos, typ in enumerate(self.pattern):
+                yield typ, tree["blocks"][pos][r]
+        yield from zip(self.remainder, tree["tail"])
+
+    def _restack(self, entries: list) -> dict:
+        """Per-layer entries in depth order -> {"blocks", "tail"}."""
+        n = len(self.pattern)
+        body = self.repeats * n
+        return {"blocks": [entries[pos:body:n] for pos in range(n)],
+                "tail": entries[body:]}
 
     # -- parameters ----------------------------------------------------------
     def init(self, seed: int | torch.Generator = 0,
@@ -118,7 +263,8 @@ class Model:
         """f32 params drawn from ``seed``: an int, drawn on ``device`` (the
         card unless the caller asks for the CPU), or a ``torch.Generator``,
         whose device must be ``device``'s.  The reference's keys, and its
-        shapes per layer."""
+        shapes per layer; drawn position by position over the repeats, then
+        the tail."""
         cfg = self.cfg
         dev = resolve_device(device)
         g = seed
@@ -128,41 +274,81 @@ class Model:
             raise ValueError(f"a generator on {g.device} cannot draw "
                              f"params on {dev}")
         dev = g.device
-        return {
-            "final_norm": init_norm(cfg.d_model, cfg.norm, dev),
-            "embed": dense_init(g, (cfg.vocab_size, cfg.d_model)),
-            "lm_head": dense_init(g, (cfg.d_model, cfg.vocab_size)),
-            "blocks": [[_init_layer(g, cfg, dev)
-                        for _ in range(self.repeats)]],
-            "tail": []}
+        params = {"final_norm": init_norm(cfg.d_model, cfg.norm, dev)}
+        if cfg.frontend == "tokens":
+            params["embed"] = dense_init(g, (cfg.vocab_size, cfg.d_model))
+        params["lm_head"] = dense_init(g, (cfg.d_model, cfg.vocab_size))
+        params["blocks"] = [[_init_layer(g, cfg, typ, dev)
+                             for _ in range(self.repeats)]
+                            for typ in self.pattern]
+        params["tail"] = [_init_layer(g, cfg, typ, dev)
+                          for typ in self.remainder]
+        return params
 
     # -- embedding / head ------------------------------------------------------
-    def _embed(self, params, tokens):
-        """Token ids -> embeddings in the compute dtype (gathered in f32,
-        then cast, as the reference does)."""
-        table = params["embed"]
-        tokens = torch.as_tensor(tokens, device=table.device).long()
-        return table[tokens].to(compute_dtype(self.cfg))
+    def _embed(self, params, batch):
+        """The batch's inputs in the compute dtype: token ids gathered from
+        the f32 table, then cast (as the reference does), or the stub
+        frontend's ``embeds``; and ``cond`` (None when absent)."""
+        cfg = self.cfg
+        dtype = compute_dtype(cfg)
+        if cfg.frontend == "tokens":
+            table = params["embed"]
+            tokens = torch.as_tensor(batch["tokens"],
+                                     device=table.device).long()
+            x = table[tokens].to(dtype)
+        else:
+            if "embeds" not in batch:
+                raise ValueError(
+                    f"{cfg.name}: the {cfg.frontend!r} frontend takes "
+                    f"batch['embeds'] (B, S, {cfg.d_model}), not token ids")
+            x = torch.as_tensor(batch["embeds"]).to(
+                device=params["lm_head"].device, dtype=dtype)
+        cond = batch.get("cond")
+        if cond is not None:
+            cond = torch.as_tensor(cond).to(device=x.device, dtype=dtype)
+        return x, cond
 
     def _head(self, params, x):
         return x @ params["lm_head"].to(x.dtype)
+
+    def _stack_angles(self, positions):
+        """RoPE's angles at ``positions``, shared by every attention layer;
+        None for an attention-free stack."""
+        if all(t in _ATTENTION_FREE for t in self.pattern):
+            return None
+        return _angles(self.cfg, positions)
+
+    def _run(self, params, batch, max_len=None):
+        """The stack over a whole sequence: (x after the final norm, aux,
+        per-layer states in depth order when ``max_len`` is given)."""
+        cfg = self.cfg
+        x, cond = self._embed(params, batch)
+        angles = self._stack_angles(torch.arange(x.shape[1],
+                                                 device=x.device)[None, :])
+        aux = torch.zeros((), device=x.device)
+        states = []
+        for typ, p in self.layers(params):
+            x, a, st = _apply_layer(x, p, cfg, typ, cond, angles, max_len)
+            if a is not None:
+                aux = aux + a
+            states.append(st)
+        return apply_norm(x, params["final_norm"], cfg.norm), aux, states
 
     # -- forward (teacher-forced) ----------------------------------------------
     def forward(self, params, batch, return_hidden: bool = False):
         """Returns (logits (B, S, V), aux) in the compute dtype; with
         return_hidden, (hidden (B, S, D) after the final norm, aux).  aux is
-        the reference's MoE loss term, zero for the dense family."""
-        cfg = self.cfg
-        x = self._embed(params, batch["tokens"])
-        angles = _angles(cfg, torch.arange(x.shape[1],
-                                           device=x.device)[None, :])
-        for p in params["blocks"][0]:
-            x, _ = _apply_layer(x, p, cfg, angles)
-        x = apply_norm(x, params["final_norm"], cfg.norm)
-        aux = torch.zeros((), device=x.device)
+        the sum of the MoE layers' router losses (f32; zero without MoE)."""
+        x, aux, _ = self._run(params, batch)
         if return_hidden:
             return x, aux
         return self._head(params, x), aux
+
+    def loss(self, params, batch):
+        raise NotImplementedError(
+            f"{self.cfg.name}: Model.loss waits for the training stack "
+            f"(ROADMAP A10)")
 
     # -- prefill ---------------------------------------------------------------
     def prefill(self, params, batch, max_len: int):
@@ -170,46 +356,53 @@ class Model:
 
         Returns (last_position_logits (B, V), decode_state): the state is
         shaped as ``init_decode_state``'s, with index = S."""
-        cfg = self.cfg
-        x = self._embed(params, batch["tokens"])
-        s = x.shape[1]
-        angles = _angles(cfg, torch.arange(s, device=x.device)[None, :])
-        states = []
-        for p in params["blocks"][0]:
-            x, st = _apply_layer_prefill(x, p, cfg, angles, max_len)
-            states.append(st)
-        x = apply_norm(x, params["final_norm"], cfg.norm)
+        x, _, states = self._run(params, batch, max_len)
         logits = self._head(params, x[:, -1:, :])[:, 0]
-        return logits, {"blocks": [states], "tail": [], "index": s}
+        return logits, {**self._restack(states), "index": x.shape[1]}
 
     # -- decode ----------------------------------------------------------------
-    def init_decode_state(self, params, batch_size: int, max_len: int):
+    def init_decode_state(self, params, batch_size: int, max_len: int,
+                          cond=None):
+        """Empty caches and recurrent states for ``batch_size`` sequences of
+        up to ``max_len`` positions; with ``cond`` (B, Tc, D), the
+        cross-attention layers' K/V precomputed from it."""
         cfg = self.cfg
         dtype = compute_dtype(cfg)
         dev = params["lm_head"].device
-        return {"blocks": [[_state_init_layer(cfg, batch_size, max_len,
-                                              dtype, dev)
-                            for _ in range(self.repeats)]],
-                "tail": [], "index": 0}
+        entries = [_state_init_layer(cfg, typ, batch_size, max_len, dtype,
+                                     dev)
+                   for typ, _ in self.layers(params)]
+        if cond is not None:
+            cond = torch.as_tensor(cond).to(device=dev, dtype=dtype)
+            for (typ, p), st in zip(self.layers(params), entries):
+                if typ == "self_cross":
+                    st["ck"], st["cv"] = attn.cond_kv(cond, p["xattn"], cfg)
+        return {**self._restack(entries), "index": 0}
 
     def decode_step(self, params, state, token_or_embed,
                     return_hidden: bool = False):
-        """One token for the whole batch.  token_or_embed: (B,) int tokens
-        (the dense family's frontend).  Returns (logits (B, V) in the compute
-        dtype, state); with return_hidden, (hidden (B, D) f32, state): the
-        PQ head (``serve/hybrid_head.py``) consumes the hidden state and the
-        full-vocab product never runs.  The caches are written in place."""
+        """One token for the whole batch.  token_or_embed: (B,) int tokens,
+        or (B, 1, D) embeddings for the ``embeddings`` frontend.  Returns
+        (logits (B, V) in the compute dtype, state); with return_hidden,
+        (hidden (B, D) f32, state): the PQ head (``serve/hybrid_head.py``)
+        consumes the hidden state and the full-vocab product never runs.
+        Caches are written in place."""
         cfg = self.cfg
         cur = int(state["index"])
-        x = self._embed(params, torch.as_tensor(token_or_embed)[:, None])
-        angles = _angles(cfg, torch.full((x.shape[0], 1), cur,
-                                         dtype=torch.int32, device=x.device))
-        new_states = []
-        for p, st in zip(params["blocks"][0], state["blocks"][0]):
-            x, st = _decode_layer(x, p, cfg, st, cur, angles)
-            new_states.append(st)
+        if cfg.frontend == "tokens":
+            x, _ = self._embed(params, {
+                "tokens": torch.as_tensor(token_or_embed)[:, None]})
+        else:
+            x, _ = self._embed(params, {"embeds": token_or_embed})
+        angles = self._stack_angles(torch.full(
+            (x.shape[0], 1), cur, dtype=torch.int32, device=x.device))
+        entries = []
+        for (typ, p), (_, st) in zip(self.layers(params),
+                                     self.layers(state)):
+            x, st = _decode_layer(x, p, cfg, typ, st, cur, angles)
+            entries.append(st)
         x = apply_norm(x, params["final_norm"], cfg.norm)
-        new_state = {"blocks": [new_states], "tail": [], "index": cur + 1}
+        new_state = {**self._restack(entries), "index": cur + 1}
         if return_hidden:
             return x[:, 0].float(), new_state
         return self._head(params, x)[:, 0], new_state

@@ -6,10 +6,11 @@ Tracks per-sequence token counts so the hybrid head's sparse penalty term
 (repetition penalty) exercises the paper's sparse + dense decomposition on a
 real serving signal.
 
-The reference casts every layer matrix to the compute dtype inside each
-jitted product; casting once gives the same bits, so a session holds its
-layer matrices and the exact head in ``cfg.dtype`` from ``create`` on.  The
-PQ head is built from the caller's f32 ``lm_head`` before the cast.
+The reference casts each layer matrix to the compute dtype at its point of
+use; casting once gives the same bits, so a session holds those leaves and
+the exact head in ``cfg.dtype`` from ``create`` on (``F32_LEAVES`` names the
+leaves it reads in f32, which stay f32).  The PQ head is built from the
+caller's f32 ``lm_head`` before the cast.
 """
 
 from __future__ import annotations
@@ -25,21 +26,43 @@ from .hybrid_head import HybridLMHead
 __all__ = ["ServeSession", "greedy_generate"]
 
 
+# A layer's sub-dicts whose leaves the reference casts to the compute dtype
+# where it uses them, each with the leaves it reads in f32 instead, which
+# stay f32 here.  The norms (ln1, ln2, lnx, final_norm: ``rms_norm`` /
+# ``layer_norm`` read the scale in f32) and the embedding table (gathered in
+# f32, then cast) stay f32 whole; the exact head is cast.
+F32_LEAVES = {
+    "attn": (), "xattn": (), "mlp": (), "moe": (),
+    # ssm.py: softplus(dt.astype(f32) + dt_bias); -exp(a_log) in f32, then
+    # the cast; rms_norm(y, norm) reads norm in f32
+    "ssd": ("dt_bias", "a_log", "norm"),
+    # rglru.py: softplus(lam.astype(f32))
+    "rec": ("lam",),
+}
+
+
 def _serving_params(params: dict, cfg) -> dict:
-    """``params`` with each layer's attention and MLP leaves and the exact
-    head in the compute dtype (bf16 for ``"bfloat16"``); the norms and the
-    embedding table stay f32, as the reference reads them.  f32 configs get
-    ``params`` back unchanged."""
+    """``params`` with every layer's leaves of ``F32_LEAVES``' sub-dicts,
+    bar the leaves listed there, and the exact head in the compute dtype
+    (bf16 for ``"bfloat16"``), over every pattern position and the tail.
+    f32 configs get ``params`` back unchanged."""
     dtype = compute_dtype(cfg)
     if dtype == torch.float32:
         return params
 
+    def cast(tree, keep=()):
+        if isinstance(tree, dict):
+            return {k: v if k in keep else cast(v) for k, v in tree.items()}
+        return tree.to(dtype)
+
     def layer(p):
-        return {k: ({n: t.to(dtype) for n, t in v.items()}
-                    if k in ("attn", "mlp") else v) for k, v in p.items()}
+        return {k: cast(v, F32_LEAVES[k]) if k in F32_LEAVES else v
+                for k, v in p.items()}
 
     return {**params, "lm_head": params["lm_head"].to(dtype),
-            "blocks": [[layer(p) for p in params["blocks"][0]]]}
+            "blocks": [[layer(p) for p in block]
+                       for block in params["blocks"]],
+            "tail": [layer(p) for p in params["tail"]]}
 
 
 @dataclasses.dataclass
@@ -110,15 +133,16 @@ def greedy_generate(model: Model, params: dict, prompt_tokens, num_steps: int,
 
     With use_pq_head, the final hidden state feeds the paper's PQ + residual
     head instead of the full-vocab product; outputs agree except where the
-    top-1 margin is below the PQ error."""
-    if cond is not None:
-        raise NotImplementedError("conditioning embeddings feed the vlm and "
-                                  "audio families, ROADMAP A9b")
+    top-1 margin is below the PQ error.  ``cond`` (B, Tc, D): the
+    conditioning embeddings of the vlm and audio families' cross-attention
+    layers."""
     sess = ServeSession.create(model, params, max_len, use_pq_head)
     dev = sess.params["lm_head"].device
     prompt = torch.as_tensor(prompt_tokens, device=dev).long()
     b = prompt.shape[0]
     batch = {"tokens": prompt}
+    if cond is not None:
+        batch["cond"] = cond
     logits, state = sess.prefill(batch)
     counts = torch.zeros((b, model.cfg.vocab_size), device=dev)
     _bump(counts, prompt)
