@@ -63,6 +63,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import statistics
@@ -2929,24 +2930,29 @@ def run_launch():
     out = {}
     try:
         store = os.path.join(tmp, "store")
-        for name, extra in (
-                ("plain", ["--retrieval"]),
-                ("persist", ["--retrieval", "--persist-dir", store]),
-                ("restore", ["--retrieval", "--restore", store]),
-                ("router", ["--role", "router"]),
-                ("lm_smoke", ["--arch", "qwen2-7b-smoke", "--pq-head"]),
-                ("lm_qwen2_7b", ["--arch", "qwen2-7b", "--pq-head",
-                                 "--tokens", "8"]),
-                ("lm_recurrentgemma_smoke", ["--arch",
-                                             "recurrentgemma-9b-smoke",
-                                             "--pq-head"]),
-                ("lm_mamba2_smoke", ["--arch", "mamba2-780m-smoke"])):
+        serve, train = "repro_torch.launch.serve", "repro_torch.launch.train"
+        for name, module, extra in (
+                ("plain", serve, ["--retrieval"]),
+                ("persist", serve, ["--retrieval", "--persist-dir", store]),
+                ("restore", serve, ["--retrieval", "--restore", store]),
+                ("router", serve, ["--role", "router"]),
+                ("lm_smoke", serve, ["--arch", "qwen2-7b-smoke",
+                                     "--pq-head"]),
+                ("lm_qwen2_7b", serve, ["--arch", "qwen2-7b", "--pq-head",
+                                        "--tokens", "8"]),
+                ("lm_recurrentgemma_smoke", serve,
+                 ["--arch", "recurrentgemma-9b-smoke", "--pq-head"]),
+                ("lm_mamba2_smoke", serve, ["--arch", "mamba2-780m-smoke"]),
+                ("train_smoke", train,
+                 ["--arch", "stablelm-1.6b-smoke", "--steps", "4",
+                  "--device", "cuda", "--ckpt",
+                  os.path.join(tmp, "train")])):
             t0 = time.perf_counter()
             r = subprocess.run(
-                [sys.executable, "-m", "repro_torch.launch.serve", *extra],
+                [sys.executable, "-m", module, *extra],
                 capture_output=True, text=True, timeout=300, env=env,
                 cwd=REPO)
-            check(r.returncode == 0, f"launch.serve {name} exited "
+            check(r.returncode == 0, f"{module} {name} exited "
                   f"{r.returncode}: {r.stderr[-2000:]}")
             lines = [ln for ln in r.stdout.splitlines()
                      if not ln.startswith("stats")]
@@ -2963,6 +2969,10 @@ def run_launch():
                 head = "pq-hybrid" if "--pq-head" in extra else "exact"
                 check(len(gen) == 1 and f"head={head}" in gen[0],
                       f"launch.serve {' '.join(extra)}: {lines}")
+            if module == train:
+                done = [ln for ln in lines if ln.startswith("done: loss ")]
+                check(len(done) == 1 and " -> " in done[0],
+                      f"launch.train {' '.join(extra)}: {lines}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit("launch", runs=out, seconds=time.perf_counter() - t_phase)
@@ -3674,14 +3684,380 @@ def run_lm_families(torch) -> dict:
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# train: the training stack (Model.loss, AdamW, Trainer, checkpoints) with
+# stablelm-1.6b at full width and depth, a resume on the card, and the six
+# family smokes' steps on the card against the CPU
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "stablelm-1.6b"           # 24 x (LayerNorm, MHA 32/32, d_ff 5632)
+TRAIN_B, TRAIN_S = 8, 512              # 4096 tokens a step, one loss chunk
+TRAIN_STEPS = 12                       # step 0 warms up; 1-11 are timed
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 2       # cosine to lr_min at TRAIN_STEPS
+TRAIN_PEAK_BOUND = 70e9
+BF16_PEAK_FLOPS = 989e12               # H100 SXM dense bf16
+RESUME_LAYERS, RESUME_AT, RESUME_STEPS = 2, 2, 4
+FAMILY_STEP_RTOL = 1e-4
+
+
+def train_flops(cfg, matmul_params: int, tokens: int, seq: int) -> float:
+    """Model FLOPs of one training step: 6 x the params that enter a matmul
+    (all but the embedding table, a gather) x tokens, plus attention's
+    QK^T and PV, 4 S d a token a layer forward, x 3 with the backward (the
+    full S x S products the masked attention computes).  The remat
+    forward is not counted."""
+    attn = 12 * cfg.num_layers * cfg.d_model * seq
+    return float((6 * matmul_params + attn) * tokens)
+
+
+def tree_devices(torch, tree) -> set:
+    from repro_torch.models.layout import flatten
+    return {t.device.type for t in flatten(tree)
+            if isinstance(t, torch.Tensor)}
+
+
+def trend_ok(losses) -> bool:
+    """The reference's trend check (tests/test_train_optim_ckpt.py:147-148):
+    the mean of the last 3 losses below the mean of the first 3."""
+    return sum(losses[-3:]) / 3 < sum(losses[:3]) / 3
+
+
+def family_batch(cfg, seed: int, b=2, s=16) -> dict:
+    """Seeded inputs of a smoke config's frontend (tokens or embeds,
+    ``cond`` where it attends over one) and labels, as numpy."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.frontend == "tokens":
+        out["tokens"] = rng.integers(0, cfg.vocab_size, (b, s)).astype(
+            np.int32)
+    else:
+        out["embeds"] = rng.standard_normal((b, s, cfg.d_model)).astype(
+            np.float32)
+    if cfg.num_cond_tokens:
+        out["cond"] = rng.standard_normal(
+            (b, cfg.num_cond_tokens, cfg.d_model)).astype(np.float32)
+    out["labels"] = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    return out
+
+
+def family_steps_vs_cpu(torch) -> dict:
+    """Two f32 train steps of each family smoke on the card and on the CPU
+    from the same params and batches: each step's nll and grad norm within
+    rtol 1e-4, and every grad leaf within rtol 1e-4 plus 1e-4 of the leaf's
+    largest |grad| (f32 sums in another order; the grads are what a device
+    fault in a backward pass would change).  Params after the two steps are
+    held within 5e-3 (test_microbatch_equivalence's bound): AdamW's first
+    steps move a param by about lr whatever its grad's size, so a grad at
+    the rounding's level moves it by lr on one device and not the other."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.layout import flatten, tree_map
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import make_train_step
+
+    out = {}
+    ocfg = AdamWConfig(lr_peak=1e-3, warmup_steps=1, decay_steps=4)
+    for name in FAMILY_SMOKES:
+        cfg = dataclasses.replace(get_config(name), dtype="float32")
+        step = make_train_step(Model(cfg), ocfg)
+        cpu = Model(cfg).init(7, device="cpu")
+        gpu = tree_map(lambda t: t.to("cuda"), cpu)
+        states = {"cpu": (cpu, adamw_init(cpu, ocfg)),
+                  "cuda": (gpu, adamw_init(gpu, ocfg))}
+        rows, grad_err = [], 0.0
+        for k in range(2):
+            batch = family_batch(cfg, seed=k)
+            got, grads = {}, {}
+            for dev, (p, o) in states.items():
+                g, m = step.grads(p, {key: torch.from_numpy(v).to(dev)
+                                      for key, v in batch.items()})
+                _, _, om = step.update(p, g, o)
+                grads[dev] = flatten(g)
+                got[dev] = [float(m["nll"]), float(om["grad_norm"])]
+            for i, what in enumerate(("nll", "grad_norm")):
+                a, w = got["cuda"][i], got["cpu"][i]
+                check(math.isfinite(a) and abs(a - w) <= FAMILY_STEP_RTOL
+                      * abs(w), f"{name} step {k} {what}: card {a} cpu {w}")
+            for a, w in zip(grads["cuda"], grads["cpu"]):
+                err = (a.cpu() - w).abs()
+                tol = FAMILY_STEP_RTOL * (w.abs() + w.abs().max())
+                check(bool(torch.all(err <= tol)),
+                      f"{name} step {k}: a grad differs from the CPU's by "
+                      f"{float(err.max())} (leaf max {float(w.abs().max())})")
+                grad_err = max(grad_err, float((err / (w.abs().max()
+                                                       + 1e-30)).max()))
+            rows.append(got)
+        d = max(float((a.cpu() - w).abs().max()) for a, w in
+                zip(flatten(states["cuda"][0]), flatten(states["cpu"][0])))
+        check(d < 5e-3, f"{name}: params after 2 steps differ by {d}")
+        out[name] = {"nll_grad_norm_by_step": rows,
+                     "grad_max_err_over_leaf_max": grad_err,
+                     "params_max_abs_diff": d}
+    return out
+
+
+def train_resume_child(root: str) -> int:
+    """Run in a process of its own (``--train-resume-child DIR``) with
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` set before CUDA starts and
+    deterministic algorithms on: stablelm-1.6b at full width cut to 2
+    layers, 4 steps uninterrupted; then 2 steps with a checkpoint at 2, and
+    a fresh Trainer that resumes there and runs to 4.  Prints one JSON line:
+    both runs' losses at steps 3-4, whether they and the final params and
+    moments are equal bit for bit, the checkpoint's bytes and seconds.
+    f32 moments unless the disk holds less than twice the npz's bytes,
+    then int8 ones."""
+    import shutil
+
+    import torch
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sys.path.insert(0, os.path.join(REPO, "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import Model
+    from repro_torch.models.layout import flatten
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              num_layers=RESUME_LAYERS)
+    n_params = sum(t.numel() for t in flatten(Model(cfg).init(
+        0, device="cuda")))
+    torch.cuda.empty_cache()
+    free = shutil.disk_usage(root).free
+    quantize = free < 2 * 3 * 4 * n_params   # f32 params + two f32 moments
+    ocfg = AdamWConfig(lr_peak=TRAIN_LR, warmup_steps=1,
+                       decay_steps=RESUME_STEPS, quantize_moments=quantize)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                      global_batch=TRAIN_B, seed=0)
+
+    def trainer(d, every):
+        return Trainer(Model(cfg), ocfg, dcfg,
+                       TrainerConfig(num_steps=RESUME_STEPS, ckpt_every=every,
+                                     ckpt_dir=os.path.join(root, d),
+                                     log_every=10 ** 9))
+
+    p_whole, o_whole, h_whole = trainer("whole", 10 ** 9).run(0)
+    t0 = time.perf_counter()
+    trainer("cut", RESUME_AT).run(0, RESUME_AT)
+    to_ckpt_s = time.perf_counter() - t0
+    npz = os.path.join(root, "cut", f"step_{RESUME_AT}", "arrays.npz")
+    t0 = time.perf_counter()
+    p_res, o_res, h_res = trainer("cut", 10 ** 9).run(0)
+    resume_s = time.perf_counter() - t0
+    print(json.dumps({
+        "layers": RESUME_LAYERS, "params": n_params,
+        "quantize_moments": quantize, "disk_free": free,
+        "deterministic": torch.are_deterministic_algorithms_enabled(),
+        "steps_resumed": [h["step"] for h in h_res],
+        "loss_whole": [h["loss"] for h in h_whole[RESUME_AT:]],
+        "loss_resumed": [h["loss"] for h in h_res],
+        "params_equal": all(torch.equal(a, b) for a, b in
+                            zip(flatten(p_whole), flatten(p_res))),
+        "moments_equal": all(torch.equal(a, b) for a, b in
+                             zip(flatten(o_whole), flatten(o_res))),
+        "checkpoint_bytes": os.path.getsize(npz),
+        "run_to_checkpoint_s": to_ckpt_s,
+        "restore_and_run_s": resume_s}), flush=True)
+    return 0
+
+
+def train_resume_check() -> dict:
+    """``train_resume_child`` in its own process, in a temp dir deleted
+    after: fails unless the resumed steps' losses, params and moments equal
+    the uninterrupted run's bit for bit."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="train-resume-")
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--train-resume-child", root],
+                           capture_output=True, text=True, timeout=400,
+                           env=env, cwd=REPO)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(r.returncode == 0, f"train resume child exited {r.returncode}: "
+          f"{r.stderr[-3000:]}")
+    res = json.loads(r.stdout.strip().splitlines()[-1])
+    check(res["steps_resumed"] == list(range(RESUME_AT, RESUME_STEPS)),
+          f"train: the resume started at {res['steps_resumed']}")
+    check(res["loss_resumed"] == res["loss_whole"] and res["params_equal"]
+          and res["moments_equal"],
+          f"train: the resumed run differs from the uninterrupted one: {res}")
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def microbatch_twin(torch, cfg, ocfg, params, batch) -> dict:
+    """One ``microbatches=2`` step beside its ``microbatches=1`` twin from
+    the same params (restored in between from a host copy) and fresh
+    moments, held as test_microbatch_equivalence holds them: params within
+    5e-3, nll within 5e-2."""
+    from repro_torch.models import Model
+    from repro_torch.models.layout import flatten
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import make_train_step
+
+    torch.cuda.reset_peak_memory_stats()
+    start = [t.to("cpu", copy=True) for t in flatten(params)]
+    nll, after = {}, None
+    for mb in (1, 2):
+        for t, s in zip(flatten(params), start):
+            t.copy_(s)
+        opt = adamw_init(params, ocfg)
+        m = make_train_step(Model(cfg), ocfg, mb)(params, opt, batch)[2]
+        nll[mb] = float(m["nll"])
+        del opt, m
+        if mb == 1:
+            after = [t.clone() for t in flatten(params)]
+    del start
+    d = max(float((a - b).abs().max())
+            for a, b in zip(after, flatten(params)))
+    check(d < 5e-3 and abs(nll[1] - nll[2]) < 5e-2,
+          f"train: microbatches 1 vs 2: params {d}, nll {nll}")
+    return {"nll": nll, "params_max_abs_diff": d,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def run_train(torch) -> None:
+    """The training stack on the card: stablelm-1.6b at full width and depth
+    (1.645B params; bf16 compute, f32 master weights and moments, remat as
+    its config sets) through ``Trainer`` for ``TRAIN_STEPS`` steps at B = 8,
+    S = 512 from a seeded ``Model.init``; one more step under
+    torch.profiler (launches and busy share a step) and one under
+    ``set_sync_debug_mode("error")``; ``microbatch_twin``; the resume check
+    in a process of its own (``train_resume_check``); the six family
+    smokes' f32 steps on the card against the CPU
+    (``family_steps_vs_cpu``).  Fails on a non-finite loss or grad norm, a
+    failed trend check, a params / moments / batch / metric tensor off the
+    card, peak memory over 70 GB, or a K1-K3 / B4 launch (the training path
+    runs none of them).  Reports ms a step, tokens/s and the optimizer's ms
+    inside a step (medians of CUDA-event readings over steps 1-11),
+    ``max_memory_allocated`` and ``mfu``, the model FLOPs' share of the
+    bf16 dense peak."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    from repro_torch.models.layout import flatten
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    launches_before = dict(ops.LAUNCHES)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(TRAIN_ARCH)
+    ocfg = AdamWConfig(lr_peak=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                       decay_steps=TRAIN_STEPS)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                      global_batch=TRAIN_B, seed=0)
+    ckpt = tempfile.mkdtemp(prefix="train-")
+    trainer = Trainer(Model(cfg), ocfg, dcfg,
+                      TrainerConfig(num_steps=TRAIN_STEPS,
+                                    ckpt_every=10 ** 9, ckpt_dir=ckpt,
+                                    log_every=10 ** 9))
+    t0 = time.perf_counter()
+    params, opt, hist = trainer.run(0)
+    run_s = time.perf_counter() - t0
+    os.rmdir(ckpt)
+    losses = [h["loss"] for h in hist]
+    norms = trainer.grad_norms
+    check(len(losses) == TRAIN_STEPS and not any(h["skipped"] for h in hist)
+          and all(math.isfinite(x) for x in losses + norms),
+          f"train: non-finite loss or grad norm: {losses} {norms}")
+    check(trend_ok(losses), f"train: loss trend not met: {losses}")
+    check(tree_devices(torch, params) == tree_devices(torch, opt)
+          == {"cuda"}, "train: a params or moments leaf is off the card")
+    n_params = sum(t.numel() for t in flatten(params))
+    matmul_params = n_params - params["embed"].numel()
+    tokens = TRAIN_B * TRAIN_S
+    step_s = statistics.median(trainer.step_times[1:])
+    opt_s = statistics.median(trainer.opt_times[1:])
+    flops = train_flops(cfg, matmul_params, tokens, TRAIN_S)
+
+    # one more step under the profiler, then one under the sync checker
+    batch = synthetic_batch(dcfg, TRAIN_STEPS, "cuda")
+    check(tree_devices(torch, batch) == {"cuda"}, "train: batch off the card")
+    step = trainer.step_fn
+    prof = device_profile(torch, lambda: step(params, opt, batch), runs=1)
+    prof.pop("k2", None)
+    if isinstance(prof.get("device_ms"), float):
+        # the profiler slows the host: its device time against the
+        # unprofiled steps' event time reads the busy share without it
+        prof["device_ms_over_step_ms"] = prof["device_ms"] / (step_s * 1e3)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        metrics = step(params, opt, batch)[2]
+        sync_free = True
+    except RuntimeError as e:
+        metrics, sync_free = None, f"raised: {str(e)[:300]}"
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if metrics is not None:
+        check(tree_devices(torch, metrics) == {"cuda"},
+              "train: a step metric is off the card")
+    peak = torch.cuda.max_memory_allocated()
+    check(peak < TRAIN_PEAK_BOUND,
+          f"train: max_memory_allocated {peak} >= 70 GB")
+    step_ms = [t * 1e3 for t in trainer.step_times]
+    opt_ms = [t * 1e3 for t in trainer.opt_times]
+    stragglers = trainer.straggler_steps
+    del opt, trainer, step, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    twin = microbatch_twin(torch, cfg, ocfg, params,
+                           synthetic_batch(dcfg, 0, "cuda"))
+    check(twin["max_memory_allocated"] < TRAIN_PEAK_BOUND,
+          f"train: the microbatch twin's max_memory_allocated "
+          f"{twin['max_memory_allocated']} >= 70 GB")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    resume = train_resume_check()
+    families = family_steps_vs_cpu(torch)
+    check(dict(ops.LAUNCHES) == launches_before,
+          f"train: a kernel launched on the training path: "
+          f"{ops.LAUNCHES} against {launches_before}")
+    emit("train", arch=TRAIN_ARCH, layers=cfg.num_layers,
+         d_model=cfg.d_model, vocab=cfg.vocab_size, params=n_params,
+         batch=TRAIN_B, seq=TRAIN_S, tokens_per_step=tokens,
+         steps=TRAIN_STEPS, lr_peak=TRAIN_LR, warmup=TRAIN_WARMUP,
+         remat=cfg.remat, dtype=cfg.dtype, losses=losses, grad_norms=norms,
+         trend_first3_last3=[sum(losses[:3]) / 3, sum(losses[-3:]) / 3],
+         ms_per_step=step_s * 1e3, tokens_per_s=tokens / step_s,
+         optimizer_ms=opt_s * 1e3, step_ms=step_ms, optimizer_step_ms=opt_ms,
+         straggler_steps=stragglers, run_seconds=run_s, profile=prof,
+         sync_free_step=sync_free, max_memory_allocated=peak,
+         peak_bound=TRAIN_PEAK_BOUND, flops_per_step=flops,
+         mfu=flops / step_s / BF16_PEAK_FLOPS, mfu_params=matmul_params,
+         microbatch_twin=twin, resume=resume,
+         families_card_vs_cpu=families,
+         kernel_launches="none: the K1-K3 and B4 counts are unchanged by "
+                         "the phase",
+         seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=524288,
                     help="rows of the slice (default 524288)")
     ap.add_argument("--inserts", type=int, default=8192,
                     help="rows the mutable phase inserts (default 8192)")
+    ap.add_argument("--train-resume-child", metavar="DIR",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_start = time.perf_counter()
+    if args.train_resume_child:
+        return train_resume_child(args.train_resume_child)
 
     import torch
     if not torch.cuda.is_available():
@@ -3751,6 +4127,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the other families: K1 once a PQ step at recurrentgemma-9b
     rows[0]["lm_families_launches"] = run_lm_families(torch)["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the training stack: no kernel of the four on its path
+    run_train(torch)
     # launch's --arch qwen2-7b process needs the sessions' memory
     gc.collect()
     torch.cuda.empty_cache()

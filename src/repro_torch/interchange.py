@@ -11,7 +11,8 @@ main generation.  Reading a snapshot directory from disk is
 which assembles the index through ``hybrid_index_from_numpy`` under the
 same leaf names.  ``hybrid_head_from_numpy`` carries the PQ LM head's
 params (``repro.serve.hybrid_head.HybridHeadParams``) the same way, and
-``model_params_from_numpy`` a ``repro.models.Model``'s params.
+``model_params_from_numpy`` a ``repro.models.Model``'s params;
+``model_params_to_numpy`` carries the port's params (or grads) back.
 """
 
 from __future__ import annotations
@@ -25,12 +26,13 @@ from .core.pq import PQCodebooks, ScalarQuant
 from .core.sparse_index import (CompactColumns, PaddedInvertedIndex,
                                 PaddedSparseRows, TileSparseHead)
 from .core.streaming import MutableState
-from .device import resolve_device
+from .device import resolve_device, to_numpy
+from .models.layout import to_reference
 from .serve.hybrid_head import HybridHeadParams
 
 __all__ = ["LEAVES", "SCALARS", "hybrid_index_from_numpy",
            "mutable_index_from_numpy", "hybrid_head_from_numpy",
-           "model_params_from_numpy"]
+           "model_params_from_numpy", "model_params_to_numpy"]
 
 LEAVES = ("pi", "cols_global_ids", "inv_rows", "inv_vals", "head_block",
           "head_occupancy", "head_dims", "res_cols", "res_vals", "centers",
@@ -143,3 +145,12 @@ def model_params_from_numpy(params: dict, cfg, device="cuda") -> dict:
                      for block in params["blocks"]]
     out["tail"] = [tree(layer) for layer in params["tail"]]
     return out
+
+
+def model_params_to_numpy(params: dict) -> dict:
+    """The inverse of ``model_params_from_numpy``: the port's param tree (or
+    a grad tree of its shape) -> the reference's layout with numpy leaves,
+    each blocks position's per-layer leaves stacked over the repeats axis in
+    repeat order, the tail and the other leaves as they are."""
+    return to_reference(params, leaf=to_numpy,
+                        stack=lambda ts: np.stack([to_numpy(t) for t in ts]))

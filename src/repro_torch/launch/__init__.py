@@ -1,2 +1,2 @@
-"""Launchers of the port (counterpart of ``repro.launch``): the retrieval
-modes of ``serve``."""
+"""Launchers of the port (counterpart of ``repro.launch``): ``serve`` (the
+LM, retrieval and cluster modes) and ``train``."""

@@ -21,16 +21,21 @@ Layer types:
   ssd        Mamba2 SSD block (no MLP)             (mamba2)
   rglru      RG-LRU recurrent block + MLP          (griffin recurrent layers)
 
-The reference's ``remat`` and ``unroll`` settings change no number and are
-ignored.  A decode state's ``index`` is a host int, so a step reads nothing
+``cfg.remat`` checkpoints the stack as the reference's ``jax.checkpoint``
+of its scan body does: with autograd recording, each repeat of the pattern
+(``torch.utils.checkpoint``; the tail layers are not) keeps only its input
+and recomputes its activations in the backward pass, which changes no
+number.  ``unroll`` changes no number and is ignored.  ``loss`` is the mean
+token cross-entropy in sequence chunks, the (B, S, V) f32 logits never
+whole.  A decode state's ``index`` is a host int, so a step reads nothing
 back from the device; ``decode_step`` writes the new K/V (and a local
-layer's slot position) into the state's caches in place.  ``Model.loss``
-waits for the training stack (ROADMAP A10).
+layer's slot position) into the state's caches in place.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import attention as attn
@@ -229,12 +234,38 @@ def _decode_layer(x, p, cfg, typ: str, state, cur_index: int, angles):
     return x, st
 
 
+def _recording(x, params) -> bool:
+    """Autograd records this forward: grads are enabled and the input or
+    the params (their head) require them."""
+    return torch.is_grad_enabled() and (x.requires_grad or
+                                        params["lm_head"].requires_grad)
+
+
+def _apply_layers(x, aux, layers, cfg, cond, angles):
+    """One repeat of the pattern (a list of (type, params)) over the whole
+    sequence, no decode state: (x, aux)."""
+    for typ, p in layers:
+        x, a, _ = _apply_layer(x, p, cfg, typ, cond, angles)
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
+def _chunk_sums(h_c, head, l_c):
+    """(sum of logsumexp - gold logit, sum of logsumexp**2) over one
+    sequence chunk, f32."""
+    lf = (h_c @ head.to(h_c.dtype)).float()
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, l_c[..., None])[..., 0]
+    return torch.stack([(logz - gold).sum(), (logz ** 2).sum()])
+
+
 # ---------------------------------------------------------------------------
 # the Model
 # ---------------------------------------------------------------------------
 
 class Model:
-    """Functional model wrapper: init / forward / prefill / decode."""
+    """Functional model wrapper: init / forward / loss / prefill / decode."""
 
     def __init__(self, cfg):
         self.cfg = cfg
@@ -328,7 +359,17 @@ class Model:
                                                  device=x.device)[None, :])
         aux = torch.zeros((), device=x.device)
         states = []
-        for typ, p in self.layers(params):
+        if max_len is None and cfg.remat and _recording(x, params):
+            for r in range(self.repeats):
+                layers = [(typ, params["blocks"][pos][r])
+                          for pos, typ in enumerate(self.pattern)]
+                x, aux = checkpoint(_apply_layers, x, aux, layers, cfg, cond,
+                                    angles, use_reentrant=False,
+                                    preserve_rng_state=False)
+            rest = zip(self.remainder, params["tail"])
+        else:
+            rest = self.layers(params)
+        for typ, p in rest:
             x, a, st = _apply_layer(x, p, cfg, typ, cond, angles, max_len)
             if a is not None:
                 aux = aux + a
@@ -346,9 +387,40 @@ class Model:
         return self._head(params, x), aux
 
     def loss(self, params, batch):
-        raise NotImplementedError(
-            f"{self.cfg.name}: Model.loss waits for the training stack "
-            f"(ROADMAP A10)")
+        """Mean token cross-entropy (+ MoE aux): (nll + zloss + aux, {"nll",
+        "aux", "zloss"}), 0-d f32 tensors.  ``batch["labels"]`` (B, S) holds
+        the next tokens.  Computed in sequence chunks of ``cfg.loss_chunk``
+        (one chunk when it does not divide S), so the (B, S, V) f32 logits
+        never exist whole: each chunk's logits are ``h @ lm_head`` in the
+        compute dtype, then f32, and give their sums of logsumexp - gold
+        and of logsumexp**2.  With more than one chunk and autograd
+        recording, each chunk is checkpointed (its logits recomputed in the
+        backward pass), as the reference's ``jax.checkpoint`` of its scan
+        body.  zloss = 1e-4 * sum(logz**2) / (B * S)."""
+        hidden, aux = self.forward(params, batch, return_hidden=True)
+        labels = torch.as_tensor(batch["labels"],
+                                 device=hidden.device).long()
+        b, s, _ = hidden.shape
+        cs = min(self.cfg.loss_chunk, s)
+        if s % cs:
+            cs = s                        # fallback: single chunk
+        nch = s // cs
+        head = params["lm_head"]
+        remat = nch > 1 and _recording(hidden, params)
+        sums = torch.zeros((2,), device=hidden.device)
+        for i in range(nch):
+            h_c = hidden[:, i * cs:(i + 1) * cs]
+            l_c = labels[:, i * cs:(i + 1) * cs]
+            if remat:
+                sums = sums + checkpoint(_chunk_sums, h_c, head, l_c,
+                                         use_reentrant=False,
+                                         preserve_rng_state=False)
+            else:
+                sums = sums + _chunk_sums(h_c, head, l_c)
+        denom = float(b * s)
+        nll = sums[0] / denom
+        zloss = 1e-4 * sums[1] / denom
+        return nll + zloss + aux, {"nll": nll, "aux": aux, "zloss": zloss}
 
     # -- prefill ---------------------------------------------------------------
     def prefill(self, params, batch, max_len: int):

@@ -153,12 +153,29 @@ def test_bump_adds_duplicates_as_the_reference():
 @pytest.mark.parametrize("arch", ["mamba2-780m-smoke", "qwen2-moe-a2.7b-smoke",
                                   "musicgen-medium-smoke"])
 def test_other_families_raise_not_implemented(arch):
-    """Every family builds its own stack now; what is still not ported,
-    the training loss (ROADMAP A10), raises instead of running something
-    else in its place."""
-    m = Model(get_config(arch))
+    """Every family builds its own stack, and no part of the model raises
+    NotImplementedError any more: the training loss, which did until the
+    training stack was ported (ROADMAP A10), runs on each family (it is
+    held to the JAX package in tests/test_torch_train.py); an input the
+    family does not take still raises rather than running something else
+    in its place."""
+    m = Model(dataclasses.replace(get_config(arch), dtype="float32"))
     assert m.pattern == {"mamba2-780m-smoke": ("ssd",),
                          "qwen2-moe-a2.7b-smoke": ("moe",),
                          "musicgen-medium-smoke": ("self_cross",)}[arch]
-    with pytest.raises(NotImplementedError, match="A10"):
-        m.loss({}, {})
+    cfg = m.cfg
+    params = m.init(0, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 8), generator=g)
+    batch = {"tokens": tokens, "labels": tokens}
+    if cfg.frontend != "tokens":
+        with pytest.raises(ValueError, match="embeds"):
+            m.loss(params, batch)
+        batch = {"embeds": torch.randn((2, 8, cfg.d_model), generator=g),
+                 "cond": torch.randn((2, cfg.num_cond_tokens, cfg.d_model),
+                                     generator=g),
+                 "labels": tokens}
+    with torch.no_grad():
+        loss, metrics = m.loss(params, batch)
+    assert set(metrics) == {"nll", "aux", "zloss"}
+    assert loss.dtype == torch.float32 and bool(torch.isfinite(loss))
