@@ -3,7 +3,10 @@
 
     python3 chip_smoke.py [--rows N] [--inserts M]
 
-Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, builds a
+Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, searches
+one 2^26-row shard of the paper's 2^30-row index at its full size
+(``launch.dryrun.lower_retrieval``, phase ``dryrun``: K2 and B4 at N =
+2^26, held to their plain versions over the whole shard), builds a
 HybridIndex of the "querysim-shard" configuration on the card and drives
 its serving paths through their entry points: the immutable three-pass
 search (phase ``slice``), the mutable index — inserts into the delta
@@ -49,8 +52,8 @@ seed=3)`` (QuerySim-shaped; d_dense=200 gives K=100 subspaces of l=16) and
 ``HybridIndexParams(keep_top=192, head_dims=128, kmeans_iters=12,
 nq_max=256)``, searched with h=20, alpha=25, beta=6 (c1=500: the fused
 scan-and-select and the block-sparse head kernel).  The 524288 rows are a
-cut of one 2^22-row shard of a 2^30-row deployment; ``--rows`` cuts further
-for quick runs.  The mutable phase inserts ``--inserts`` (default 8192)
+cut of one 2^26-row shard of a 2^30-row deployment (the ``dryrun`` phase
+runs a whole one); ``--rows`` cuts further for quick runs.  The mutable phase inserts ``--inserts`` (default 8192)
 perturbed copies of main rows in batches of 16 into the default
 64-slot delta shard; the durable phase 2048 + 256 of them, on the same
 rows.
@@ -74,8 +77,10 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(REPO, "src"))
+from repro_torch.roofline.analysis import H100  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
+HBM_BYTES_PER_S = H100["hbm_bw"]    # H100 SXM HBM3
 F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 # The 67e12 counts an FMA as two operations; an f32 add takes one FMA lane
 # a clock, so adds alone run at half of it (132 SMs x 128 lanes x 1.98 GHz).
@@ -2930,7 +2935,10 @@ def run_launch():
     out = {}
     try:
         store = os.path.join(tmp, "store")
+        rows = os.path.join(tmp, "dryrun.jsonl")
         serve, train = "repro_torch.launch.serve", "repro_torch.launch.train"
+        dryrun = "repro_torch.launch.dryrun"
+        report = "repro_torch.roofline.report"
         for name, module, extra in (
                 ("plain", serve, ["--retrieval"]),
                 ("persist", serve, ["--retrieval", "--persist-dir", store]),
@@ -2946,7 +2954,14 @@ def run_launch():
                 ("train_smoke", train,
                  ["--arch", "stablelm-1.6b-smoke", "--steps", "4",
                   "--device", "cuda", "--ckpt",
-                  os.path.join(tmp, "train")])):
+                  os.path.join(tmp, "train")]),
+                # 4 blocks of 32 queries, beside the dryrun phase's fewest
+                ("dryrun_retrieval", dryrun, ["--retrieval", "--query-blocks",
+                                              "4", "--out", rows]),
+                ("dryrun_stablelm", dryrun,
+                 ["--arch", "stablelm-1.6b", "--shape", "train_4k",
+                  "--out", rows]),
+                ("roofline_report", report, [rows])):
             t0 = time.perf_counter()
             r = subprocess.run(
                 [sys.executable, "-m", module, *extra],
@@ -2973,6 +2988,28 @@ def run_launch():
                 done = [ln for ln in lines if ln.startswith("done: loss ")]
                 check(len(done) == 1 and " -> " in done[0],
                       f"launch.train {' '.join(extra)}: {lines}")
+            if module == dryrun:
+                check(lines[-1].endswith(" ok, 0 skip, 0 fail"),
+                      f"launch.dryrun {' '.join(extra)}: {lines[-3:]}")
+            if name == "dryrun_retrieval":
+                with open(rows) as fh:
+                    row = json.loads(fh.readline())
+                check(row["query_blocks"]["blocks"] == 4,
+                      f"launch.dryrun --retrieval: {row['query_blocks']}")
+                out[name]["query_blocks"] = row["query_blocks"]
+                out[name]["calls"] = {
+                    form: {call: {k: f[call][k] for k in (
+                        "ms", "ms_runs", "rows_per_s", "launches",
+                        "max_memory_allocated")}
+                        for call in ("pass1", "three_pass")}
+                    for form, f in row["forms"].items()}
+            if module == report:
+                table = [ln for ln in lines if ln.startswith("|")]
+                check(len(table) == 4
+                      and "| hybrid-retrieval-1b | search_q128 |" in table[2]
+                      and "| stablelm-1.6b | train_4k |" in table[3],
+                      f"roofline.report: {lines}")
+                out[name]["table"] = table
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit("launch", runs=out, seconds=time.perf_counter() - t_phase)
@@ -3695,7 +3732,7 @@ TRAIN_B, TRAIN_S = 8, 512              # 4096 tokens a step, one loss chunk
 TRAIN_STEPS = 12                       # step 0 warms up; 1-11 are timed
 TRAIN_LR, TRAIN_WARMUP = 3e-4, 2       # cosine to lr_min at TRAIN_STEPS
 TRAIN_PEAK_BOUND = 70e9
-BF16_PEAK_FLOPS = 989e12               # H100 SXM dense bf16
+BF16_PEAK_FLOPS = H100["peak_flops"]   # H100 SXM dense bf16
 RESUME_LAYERS, RESUME_AT, RESUME_STEPS = 2, 2, 4
 FAMILY_STEP_RTOL = 1e-4
 
@@ -3708,6 +3745,35 @@ def train_flops(cfg, matmul_params: int, tokens: int, seq: int) -> float:
     forward is not counted."""
     attn = 12 * cfg.num_layers * cfg.d_model * seq
     return float((6 * matmul_params + attn) * tokens)
+
+
+def train_accounting(cfg, ocfg, step_s: float) -> dict:
+    """The package's accounting of the phase's step (``roofline.analysis``):
+    the reference's ``model_flops`` for B = 8, S = 512, and ``cost_of``'s
+    flops and bytes of the same step (``launch.dryrun.build_cell``: grads +
+    ``adamw_update``) counted on ``meta``; ``eager_traffic_ms``, the larger
+    of the counted flops over the bf16 peak and the counted bytes over the
+    memory rate, beside the measured ms a step.  It is an estimate of the
+    eager program's op-by-op traffic with no cache reuse, not a bound: a
+    fused step moves fewer bytes."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.dryrun import build_cell
+    from repro_torch.roofline.analysis import cost_of, model_flops
+
+    t0 = time.perf_counter()
+    shape = ShapeConfig("train_b8_s512", TRAIN_S, TRAIN_B, "train")
+    cell = build_cell(cfg, shape, opt_cfg=ocfg)
+    c_flops, c_bytes = cost_of(cell.fn, *cell.args)
+    compute_ms = c_flops / H100["peak_flops"] * 1e3
+    memory_ms = c_bytes / H100["hbm_bw"] * 1e3
+    return {"model_flops": model_flops(cfg, shape),
+            "counted_flops": c_flops, "counted_bytes": c_bytes,
+            "eager_traffic_ms": max(compute_ms, memory_ms),
+            "eager_traffic_by": ("operations" if compute_ms >= memory_ms
+                                 else "bytes"),
+            "compute_ms": compute_ms, "memory_ms": memory_ms,
+            "ms_per_step": step_s * 1e3,
+            "count_seconds": time.perf_counter() - t0}
 
 
 def tree_devices(torch, tree) -> set:
@@ -3811,7 +3877,6 @@ def train_resume_child(root: str) -> int:
     import torch
     torch.use_deterministic_algorithms(True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    sys.path.insert(0, os.path.join(REPO, "src"))
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.models import Model
@@ -3981,6 +4046,7 @@ def run_train(torch) -> None:
     step_s = statistics.median(trainer.step_times[1:])
     opt_s = statistics.median(trainer.opt_times[1:])
     flops = train_flops(cfg, matmul_params, tokens, TRAIN_S)
+    accounting = train_accounting(cfg, ocfg, step_s)
 
     # one more step under the profiler, then one under the sync checker
     batch = synthetic_batch(dcfg, TRAIN_STEPS, "cuda")
@@ -4039,11 +4105,143 @@ def run_train(torch) -> None:
          sync_free_step=sync_free, max_memory_allocated=peak,
          peak_bound=TRAIN_PEAK_BOUND, flops_per_step=flops,
          mfu=flops / step_s / BF16_PEAK_FLOPS, mfu_params=matmul_params,
+         accounting=accounting,
          microbatch_twin=twin, resume=resume,
          families_card_vs_cpu=families,
          kernel_launches="none: the K1-K3 and B4 counts are unchanged by "
                          "the phase",
          seconds=time.perf_counter() - t_phase)
+
+
+# ---------------------------------------------------------------------------
+# dryrun: one 2^26-row shard of the paper's 2^30-row index on the card
+# ---------------------------------------------------------------------------
+
+DRYRUN_SHARD_BYTES = 54_626_615_296    # codes, inverted index, residuals
+ALLOC_ROUNDING = 1 << 20               # the caching allocator's rounding
+
+
+def dryrun_bounds(n: int, q: int, packed: bool) -> dict:
+    """Bounds (ms) of K1, K2 and B4 over the shard at ``q`` queries: K1 the
+    larger of N·Kc + 4·Q·N bytes and Q·N·K f32 adds, K2 of the same bytes
+    and Q·N·(K + 1) adds; B4 its 4·Q·N bytes out, 8 B a live posting
+    (every list full, every query slot a distinct dim) and the queries."""
+    from repro_torch.launch import dryrun as dr
+
+    kc = dr.K_PQ // 2 if packed else dr.K_PQ
+    k_b = (n * kc + 4 * q * n) / HBM_BYTES_PER_S * 1e3
+    k1_o = q * n * dr.K_PQ / F32_ADDS_PER_S * 1e3
+    k2_o = q * n * (dr.K_PQ + 1) / F32_ADDS_PER_S * 1e3
+    b4_b = (4 * q * n + 8 * q * dr.NQ * dr.L_MAX + 8 * q * dr.NQ) \
+        / HBM_BYTES_PER_S * 1e3
+    return {"k1_bound_ms": max(k_b, k1_o),
+            "k1_bound_by": "bytes" if k_b >= k1_o else "operations",
+            "k2_bound_ms": max(k_b, k2_o),
+            "k2_bound_by": "bytes" if k_b >= k2_o else "operations",
+            "b4_bound_ms": b4_b, "b4_bound_by": "bytes"}
+
+
+def run_dryrun(torch) -> dict:
+    """``launch.dryrun.lower_retrieval`` at its production size: shard 15
+    of the 16-way ``data`` axis of a 2^30-row index, 2^26 rows (54.63 GB of
+    codes, inverted index and residuals) allocated on the card from seed 0
+    and searched, pass 1 at k = 100 and the three-pass search at h = 100,
+    alpha = 5, beta = 2, on ``cuda`` then ``cuda-packed``, the 128 queries in
+    the fewest equal blocks whose bias fits.  Fails unless: the shard's
+    reckoned bytes are 54,626,615,296 and ``memory_allocated`` grows by
+    the arrays' bytes in the build (within the allocator's rounding); each
+    call launches K2 and B4 once a block and K1 never; and, through
+    ``launch.retrieval_check.inspect_form``, at 4 queries (the last of the
+    first block) in both forms: B4 equals ``score_inverted`` bit for bit at
+    those queries' rows of the whole first block's bias (where every CTA
+    streams) and alone; K1's (4, 2^26) scores equal the plain scan, run in
+    2^21-row slices, bit for bit; K2's fused top-100 and top-500 equal a
+    stable top-k of the plain scan + the bias bit for bit, and the
+    three-pass result equals passes 2-3 on those candidates; the plain
+    versions' ms are kept beside the kernels'; the blocked pass-1 rows of those
+    queries equal a block of just them bit for bit, and their three-pass
+    rows within rtol 1e-5 / atol 1e-4 with ids equal up to near-ties
+    (``topk_ties``: passes 2-3's cuBLAS products may add in another order
+    at another Q; the row says whether the bits moved); every id lies in
+    the shard's
+    global row range; the peak stays under the card's memory and the peak
+    over the arrays under one bias block + the block slack; and the
+    package's ``H100["hbm_bytes"]`` is not above the card's total memory.
+    The launches of the timed calls are the path's count."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch.retrieval_check import inspect_form
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    check(H100["hbm_bytes"] <= total,
+          f"dryrun: H100 hbm_bytes {H100['hbm_bytes']} > total {total}")
+    ops.reset_counts()
+    row = dr.lower_retrieval(multi_pod=False, device="cuda", seed=0,
+                             keep_results=True, inspect=inspect_form,
+                             verbose=False)
+    counted = dict(ops.LAUNCHES)
+    n, blocks = row["rows"], row["query_blocks"]["blocks"]
+    per = row["query_blocks"]["queries_a_block"]
+    rb = row["reckoned_bytes"]
+    check(n == 2 ** 26 and row["row_offset"] == 15 * 2 ** 26,
+          f"dryrun: {n} rows at offset {row['row_offset']}")
+    check(rb["shard"] == DRYRUN_SHARD_BYTES,
+          f"dryrun: the shard reckons {rb['shard']} B")
+    arrays = sum(v for k, v in rb.items() if k not in ("codes_packed",
+                                                        "shard"))
+    alloc = row["memory_allocated_by_build"]
+    check(arrays <= alloc <= arrays + ALLOC_ROUNDING,
+          f"dryrun: memory_allocated {alloc} after a {arrays} B build")
+    main_path = dict.fromkeys(ops.LAUNCHES, 0)
+    for form, f in row["forms"].items():
+        c = f["check"]
+        f["kernels"]["check_queries"].update(
+            plain_k1_ms=c["plain_scan_ms"], plain_k2_ms=c["plain_k2_ms"])
+        check(c["block_tail_equals_plain"] and c["tail_equals_plain"],
+              f"dryrun {form}: B4 differs from score_inverted at 4 queries: "
+              f"{c}")
+        check(c["k1_equals_plain"],
+              f"dryrun {form}: K1 differs from the plain scan: {c}")
+        check(all(c["fused_equals_plain"].values())
+              and c["three_pass_equals_plain_route"],
+              f"dryrun {form}: K2 differs from the plain scan + stable "
+              f"top-k: {c}")
+        check(c["blocked_rows_equal_alone"]["pass1"],
+              f"dryrun {form}: blocked pass-1 rows differ from a block of "
+              f"their queries alone")
+        rows3 = f.pop("results")["check_three_pass"]
+        c["blocked_three_pass_ties"] = topk_ties(
+            *(t.cpu().numpy() for t in rows3["blocked"][::-1]),
+            *(t.cpu().numpy() for t in rows3["alone"][::-1]),
+            f"dryrun {form}: blocked three-pass rows against a block of "
+            f"their queries alone")
+        check(f["ids_in_shard"], f"dryrun {form}: ids {f['id_range']} off "
+              f"[{row['row_offset']}, {row['row_offset'] + n})")
+        for call in ("pass1", "three_pass"):
+            check(f[call]["launches"] == {"lut16_adc_topk": blocks,
+                                          "score_inverted_vf": blocks},
+                  f"dryrun {form} {call}: launches {f[call]['launches']}")
+            check(f[call]["max_memory_allocated"] < total,
+                  f"dryrun {form} {call}: peak over the card's memory")
+            for k, v in f[call]["launches_all_calls"].items():
+                main_path[k] += v
+        check(f["peak_over_arrays"] <= per * n * 4 + dr.BLOCK_SLACK,
+              f"dryrun {form}: {f['peak_over_arrays']} B over the arrays")
+        for where, kt in f["kernels"].items():
+            kt.update(dryrun_bounds(n, kt["queries"], form != "cuda"))
+    check(all(counted[k] >= v for k, v in main_path.items()),
+          f"dryrun: counts {counted} below the calls' {main_path}")
+    emit("dryrun", **row, counted_launches=counted,
+         main_path_launches=main_path,
+         seconds=time.perf_counter() - t_phase)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": main_path,
+            "kernels": {form: f["kernels"]
+                        for form, f in row["forms"].items()}}
 
 
 def main() -> int:
@@ -4063,7 +4261,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.join(REPO, "src"))
     from repro_torch.kernels import _build
 
     # f32 products stay f32: no TF32 anywhere in this run
@@ -4080,6 +4277,8 @@ def main() -> int:
                     if "registers" in ln or "spill" in ln]
              for name, log in info["ptxas"].items()}
     emit("build", seconds=info["seconds"], built=info["built"], ptxas=ptxas)
+    # the production shard first, while the card holds nothing else
+    dry = run_dryrun(torch)
     (idx, ds, queries, launches, c1, res, profiles,
      true_ids) = run_slice(args, torch)
     rows = run_kernels(torch, idx, queries, launches, c1)
@@ -4136,6 +4335,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_launch()
     run_reference_store(torch)
+    for r in rows:
+        r["dryrun_launches"] = dry["launches"][r["name"]]
+        if r["name"] in ("lut16_adc", "lut16_adc_topk", "score_inverted_vf"):
+            r["dryrun_kernels"] = dry["kernels"]
     emit("total", seconds=time.perf_counter() - t_start)
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -17,8 +17,8 @@ numpy on the host and uploaded once a batch:
     ``(bits >> 9) | 0x3F800000`` read as f32, minus 1, compared with p).
 
 Targets are a noisy "copy previous token + drift" sequence so a real LM can
-overfit it measurably.  The reference's ``input_specs_for_shape`` serves
-``launch/dryrun.py``'s TPU compile and is not ported.
+overfit it measurably.  ``input_specs_for_shape`` gives a dry-run cell's
+inputs as ``meta`` tensors (``launch/dryrun.py`` counts a step on them).
 """
 
 from __future__ import annotations
@@ -30,7 +30,8 @@ import torch
 
 from ..device import resolve_device
 
-__all__ = ["DataConfig", "synthetic_batch", "prng_key", "fold_in", "split", "random_bits", "randint",
+__all__ = ["DataConfig", "synthetic_batch", "input_specs_for_shape",
+           "prng_key", "fold_in", "split", "random_bits", "randint",
            "uniform", "bernoulli", "threefry2x32"]
 
 _U32 = np.uint32
@@ -162,3 +163,35 @@ def synthetic_batch(cfg: DataConfig, step: int, device="cuda") -> dict:
     dev = resolve_device(device)
     return {k: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
             for k, a in _batch_numpy(cfg, step).items()}
+
+
+def input_specs_for_shape(cfg_model, shape, *,
+                          dtype=torch.bfloat16) -> dict:
+    """``meta`` stand-ins for every model input of a given (arch, shape)
+    cell: the dry-run contract (no allocation, no draws).
+
+    train/prefill: full (B, S) token batch (or embeddings for stub
+    frontends) + labels for train; decode: one token (B,) (the cell's
+    decode state is built separately in ``launch/dryrun.py``)."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def meta(size, dt):
+        return torch.empty(size, dtype=dt, device="meta")
+
+    specs: dict = {}
+    if shape.kind in ("train", "prefill"):
+        if cfg_model.frontend == "tokens":
+            specs["tokens"] = meta((b, s), torch.int32)
+        else:
+            specs["embeds"] = meta((b, s, cfg_model.d_model), dtype)
+        if cfg_model.num_cond_tokens:
+            specs["cond"] = meta((b, cfg_model.num_cond_tokens,
+                                  cfg_model.d_model), dtype)
+        if shape.kind == "train":
+            specs["labels"] = meta((b, s), torch.int32)
+    else:  # decode: one new token against a seq_len-deep cache/state
+        if cfg_model.frontend == "tokens":
+            specs["token"] = meta((b,), torch.int32)
+        else:
+            specs["token"] = meta((b, 1, cfg_model.d_model), dtype)
+    return specs

@@ -1,24 +1,107 @@
-"""Numerics shared by the model zoo (counterpart of ``repro.models.common``):
-norms, RoPE, the fan-in init and the MLP activations.
+"""Shared model plumbing (counterpart of ``repro.models.common``): the
+logical-axis rule table and its resolution into per-dim mesh axes, norms,
+RoPE, the fan-in init and the MLP activations.
 
-The reference's logical-axis sharding helpers (``logical_constraint``,
-``sharding_rules``, ``resolve_spec``, ``logical_spec``, ``current_mesh``)
-place arrays on a TPU mesh; on one card every constraint is the identity, so
-they are not ported.
+The reference's model code annotates tensors with *logical* axis names and
+a context-installed rule set maps them to mesh axes.  The port runs no SPMD
+program, so ``logical_constraint`` (``with_sharding_constraint``) is not
+ported; the rest is arithmetic on a mesh's axis names and sizes and is:
+``resolve_spec`` gives the spec the reference's ``PartitionSpec`` holds, as
+a plain tuple (one entry a dim: None, an axis name, or a tuple of names),
+which ``models/shardings.py`` and ``launch/dryrun.py`` read to reckon each
+device's share of a cell's arrays on a ``launch.mesh.LogicalMesh``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
 
-__all__ = ["compute_dtype", "rms_norm", "layer_norm", "apply_norm",
-           "init_norm", "rope", "rope_angles", "apply_rope", "dense_init",
-           "activation"]
+__all__ = ["DEFAULT_RULES", "sharding_rules", "resolve_spec", "current_mesh",
+           "logical_spec", "compute_dtype", "rms_norm", "layer_norm",
+           "apply_norm", "init_norm", "rope", "rope_angles", "apply_rope",
+           "META_DRAWS", "draw_source", "dense_init", "activation"]
+
+_STATE = threading.local()
+
+# logical axis -> mesh axis (or tuple), as the reference's table
+DEFAULT_RULES = {
+    "batch": ("pod", "data"),
+    "seq": None,
+    "embed": None,
+    "heads": "model",
+    "kv_heads": "model",          # demoted to None when heads % shards != 0
+    "head_dim": None,
+    "mlp": "model",
+    "vocab": "model",
+    "expert": "model",
+    "expert_mlp": None,
+    "capacity": None,
+    "fsdp": "data",               # parameter sharding axis
+    "kv_seq": "model",            # decode-time KV cache sequence sharding
+    "state": "model",             # recurrent state width
+    "cond": None,
+    "moe_tokens": "model",        # MoE dispatch token axis (EP all-to-all)
+}
+
+
+@contextlib.contextmanager
+def sharding_rules(mesh, rules: dict | None = None):
+    """Install (mesh, rules) for the block: ``current_mesh`` returns the
+    mesh inside it."""
+    prev = getattr(_STATE, "ctx", None)
+    _STATE.ctx = (mesh, dict(DEFAULT_RULES, **(rules or {})))
+    try:
+        yield
+    finally:
+        _STATE.ctx = prev
+
+
+def resolve_spec(mesh, rules, names, shape) -> tuple:
+    """Map logical axis names -> a spec tuple, claiming each mesh axis at
+    most once and *only* when it divides the dimension (so 28 heads on a
+    16-way model axis degrade to replication, and a later logical axis may
+    claim the freed mesh axis).  ``mesh`` needs ``axis_names`` and
+    ``shape`` (axis -> size); the result has one entry a (name, dim) pair,
+    as the reference's ``PartitionSpec`` does."""
+    axes = []
+    used: set[str] = set()
+    for nm, dim in zip(names, shape):
+        ax = rules.get(nm) if nm is not None else None
+        if ax is None:
+            axes.append(None)
+            continue
+        cand = []
+        size = 1
+        for a in (ax if isinstance(ax, tuple) else (ax,)):
+            if a in mesh.axis_names and a not in used:
+                cand.append(a)
+                size *= mesh.shape[a]
+        # greedy shrink until it divides
+        while cand and (dim % size != 0 or dim < size):
+            size //= mesh.shape[cand.pop()]
+        used.update(cand)
+        axes.append(tuple(cand) if len(cand) > 1 else
+                    (cand[0] if cand else None))
+    return tuple(axes)
+
+
+def current_mesh():
+    """Mesh installed by sharding_rules (None outside one)."""
+    ctx = getattr(_STATE, "ctx", None)
+    return ctx[0] if ctx else None
+
+
+def logical_spec(mesh, shape, *names, rules: dict | None = None) -> tuple:
+    """The spec of an array of ``shape`` whose dims carry ``names``."""
+    rules = dict(DEFAULT_RULES, **(rules or {}))
+    return resolve_spec(mesh, rules, names, shape)
 
 
 def compute_dtype(cfg) -> torch.dtype:
@@ -99,16 +182,35 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return apply_rope(x, rope_angles(positions, x.shape[-1], theta, fraction))
 
 
+class _MetaDraws:
+    """Stands for a generator on the ``meta`` device, where no
+    ``torch.Generator`` exists: an init given it makes tensors of the
+    drawn shapes and dtypes and draws nothing."""
+    device = torch.device("meta")
+
+
+META_DRAWS = _MetaDraws()
+
+
+def draw_source(generator):
+    """The ``generator=`` argument of an in-place draw: None for
+    ``META_DRAWS`` (nothing is drawn on ``meta``)."""
+    return None if generator is META_DRAWS else generator
+
+
 def dense_init(generator: torch.Generator, shape,
                in_axis: int = 0) -> torch.Tensor:
     """Truncated-normal fan-in init, f32 master weights: N(0, 1) cut to
     [-2, 2] (by inverting the normal CDF on a uniform draw, as
     ``torch.nn.init.trunc_normal_`` does), times ``fan_in ** -0.5`` with
-    ``fan_in = shape[in_axis]``, on ``generator``'s device."""
+    ``fan_in = shape[in_axis]``, on ``generator``'s device (``META_DRAWS``:
+    on ``meta``, shapes only)."""
     lo = (1.0 + math.erf(-2.0 / math.sqrt(2.0))) / 2.0
     hi = (1.0 + math.erf(2.0 / math.sqrt(2.0))) / 2.0
     t = torch.empty(tuple(shape), dtype=torch.float32,
                     device=generator.device)
+    if generator is META_DRAWS:
+        return t
     t.uniform_(2 * lo - 1, 2 * hi - 1, generator=generator)
     t.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
     return t.mul_(shape[in_axis] ** -0.5)

@@ -42,8 +42,8 @@ from . import attention as attn
 from . import mlp as mlp_mod
 from . import rglru as rglru_mod
 from . import ssm as ssm_mod
-from .common import (apply_norm, compute_dtype, dense_init, init_norm,
-                     rope_angles)
+from .common import (META_DRAWS, apply_norm, compute_dtype, dense_init,
+                     init_norm, rope_angles)
 
 __all__ = ["Model", "pattern_for"]
 
@@ -295,11 +295,15 @@ class Model:
         card unless the caller asks for the CPU), or a ``torch.Generator``,
         whose device must be ``device``'s.  The reference's keys, and its
         shapes per layer; drawn position by position over the repeats, then
-        the tail."""
+        the tail.  On ``meta`` nothing is drawn and ``seed`` is unused: the
+        tree's shapes and dtypes, as ``jax.eval_shape(model.init, key)``
+        gives them to the reference."""
         cfg = self.cfg
         dev = resolve_device(device)
         g = seed
-        if not isinstance(g, torch.Generator):
+        if dev.type == "meta":
+            g = META_DRAWS
+        elif not isinstance(g, torch.Generator):
             g = torch.Generator(device=dev).manual_seed(int(seed))
         elif g.device.type != dev.type:
             raise ValueError(f"a generator on {g.device} cannot draw "

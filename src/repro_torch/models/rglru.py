@@ -24,7 +24,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .common import dense_init
+from .common import dense_init, draw_source
 
 __all__ = ["init_rglru", "rglru_block", "rglru_decode_init",
            "rglru_decode_step", "linear_scan"]
@@ -37,7 +37,7 @@ def init_rglru(generator, cfg) -> dict:
     w = cfg.lru_width or d
     dev = generator.device
     conv_w = torch.empty((4, w), device=dev)
-    conv_w.normal_(generator=generator).mul_(0.1)
+    conv_w.normal_(generator=draw_source(generator)).mul_(0.1)
     # a^c in [0.9, 0.999] at init, as in the paper
     a_c = torch.linspace(0.9, 0.999, w, device=dev)
     return {

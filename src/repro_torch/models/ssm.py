@@ -24,7 +24,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .common import dense_init, rms_norm
+from .common import dense_init, draw_source, rms_norm
 
 __all__ = ["init_ssd", "ssd_chunked", "ssd_block", "ssd_decode_init",
            "ssd_decode_step"]
@@ -42,7 +42,7 @@ def init_ssd(generator, cfg) -> dict:
     dev = generator.device
     conv_ch = d_in + 2 * n
     conv_w = torch.empty((cfg.ssm_conv, conv_ch), device=dev)
-    conv_w.normal_(generator=generator).mul_(0.1)
+    conv_w.normal_(generator=draw_source(generator)).mul_(0.1)
     return {
         "in_proj": dense_init(generator, (d, 2 * d_in + 2 * n + h)),
         "conv_w": conv_w,

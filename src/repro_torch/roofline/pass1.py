@@ -6,13 +6,14 @@ path writes AND re-reads the (Q, N) f32 score matrix on its way to top-k,
 while the fused path's memory traffic is just the code stream (halved again
 by 4-bit packing), the per-query LUTs, and the (Q, cbuf) candidate buffers.
 ``predicted_pass1_bytes`` is that analytic model, integer arithmetic with no
-dependence on the hardware.  The reference's ``measured_bytes`` reads XLA's
-``cost_analysis()`` of a jitted function and is not ported.
+dependence on the hardware.  ``measured_bytes`` is the counted side: the
+eager call's op-by-op bytes (``roofline.analysis.cost_of``), where the
+reference reads XLA's ``cost_analysis()`` of the jitted function.
 """
 
 from __future__ import annotations
 
-__all__ = ["predicted_pass1_bytes"]
+__all__ = ["predicted_pass1_bytes", "measured_bytes"]
 
 
 def predicted_pass1_bytes(*, q: int, n: int, k_codes: int, l: int = 16,
@@ -36,3 +37,16 @@ def predicted_pass1_bytes(*, q: int, n: int, k_codes: int, l: int = 16,
     if not fused:
         total += 2 * q * n * 4                # write + re-read (Q, N) scores
     return int(total)
+
+
+def measured_bytes(fn, *args) -> float | None:
+    """The bytes ``roofline.analysis.cost_of`` counts for ``fn(*args)``:
+    every data-moving op's tensor inputs and outputs.  None when the call
+    moves no tensor bytes (as the reference returns None when the cost
+    model has no "bytes accessed" key).  A custom kernel's launch is not an
+    aten op and is not counted: count its plain version, on CPU or ``meta``
+    tensors."""
+    from .analysis import cost_of
+
+    nbytes = cost_of(fn, *args)[1]
+    return nbytes if nbytes else None

@@ -4,7 +4,10 @@ tools/b4_probe.py, imports
 jax or the JAX package ``repro``, and the package (its serving, cluster,
 persistence, observability, checkpoint and launch subpackages included)
 imports in a process where jax cannot be imported at all (its configs,
-models and decode loop included).
+models and decode loop included, and the dry-run and roofline tools:
+``launch.dryrun``, ``launch.retrieval_check``, ``launch.perf_probe``,
+``launch.mesh``, ``models.shardings``, ``roofline.analysis``,
+``roofline.report``).
 ``tools/make_reference_store.py`` is the reference's tool and imports
 ``repro`` on purpose."""
 
@@ -51,7 +54,11 @@ def test_package_imports_without_jax():
             "repro_torch.serve.cluster, "
             "repro_torch.serve.cluster.shard_server, "
             "repro_torch.launch.serve, repro_torch.configs, "
-            "repro_torch.models, repro_torch.serve.serving\n"
+            "repro_torch.models, repro_torch.serve.serving, "
+            "repro_torch.launch.dryrun, repro_torch.launch.retrieval_check, "
+            "repro_torch.launch.perf_probe, "
+            "repro_torch.launch.mesh, repro_torch.models.shardings, "
+            "repro_torch.roofline.analysis, repro_torch.roofline.report\n"
             "assert 'jax' not in {m.split('.')[0] for m, v in "
             "sys.modules.items() if v is not None}\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
