@@ -9,7 +9,10 @@ one 2^26-row shard of the paper's 2^30-row index at its full size
 2^26, held to their plain versions over the whole shard), builds a
 HybridIndex of the "querysim-shard" configuration on the card and drives
 its serving paths through their entry points: the immutable three-pass
-search (phase ``slice``), the mutable index — inserts into the delta
+search (phase ``slice``), each of its 128 queries alone, in
+``QueryService`` buckets of 8 and 32 and in the Q = 128 call, bit for bit,
+on ``cuda`` and ``cuda-packed``, fused and materialised (phase
+``batch_invariance``), the mutable index — inserts into the delta
 shard, deletes, searches merged across main and delta, merge and retrain
 compaction (phase ``mutable``) — and the serving tier: ``QueryService``
 over the slice's index under a ragged request stream, with the shard
@@ -38,8 +41,11 @@ every kernel against its plain PyTorch version on the card, at the
 slice's shapes, at those the cluster's nodes give it and, for K1 and K2,
 at K up to 8192 (phases
 ``kernels_checked``, ``score_inverted_vf`` — B4, the pass-1 tail bias,
-which every search path launches, timed beside the plain route — and
-``value_forward``, the JAX layout's stream kernel, off every path).  Each
+which every search path launches, timed beside the plain route —
+``value_forward``, the JAX layout's stream kernel, off every path — and
+``residual_checked``: R0-R3, ``csrc/residual.cu``, the fixed-order kernels
+of the LUT, passes 2-3 and the PQ head's exact columns, at the test
+widths and the heads' d = 3584 and 8192).  Each
 phase prints one JSON line; any failed check
 raises, and the script exits non-zero.  The last line is ``{"ok": true,
 "device": {...}}``.  Without a CUDA device, or without the rest of the
@@ -274,6 +280,9 @@ def run_slice(args, torch):
           "once")
     check(launches["inverted_value_forward"] == 0,
           "main path launched the stream B4")
+    check(all(launches[k] == 1 for k in ("adc_lut", "dense_residual",
+                                         "sparse_residual")),
+          f"main path did not launch R0, R1 and R2 once each: {launches}")
     check(sum(plain.values()) == 0, f"main path ran plain versions: {plain}")
     check(res.ids.shape == (128, h) and bool(np.isfinite(res.scores).all()),
           "main-path result is not finite (128, h)")
@@ -1161,6 +1170,372 @@ def run_kernels(torch, idx, queries, launches, c1):
          block_sparse_cases=edge_bs, cluster_shapes=cluster_shapes,
          tolerance={"rtol": RTOL, "atol": ATOL})
     return rows
+
+
+# ---------------------------------------------------------------------------
+# residual: R0-R3 (csrc/residual.cu), the fixed-order kernels of the LUT,
+# passes 2-3 and the PQ head's exact columns, bit for bit with their plain
+# versions, each query's rows the same alone and in any batch
+# ---------------------------------------------------------------------------
+
+RESIDUAL_SOURCE = "src/repro_torch/csrc/residual.cu"
+# no Pallas kernel: the JAX package's plain jnp step each takes the place of
+RESIDUAL_REPLACES = {
+    "adc_lut": "none: plain jnp, src/repro/core/pq.py:132 adc_lut",
+    "dense_residual": "none: plain jnp, src/repro/core/residual.py:32 "
+                      "dense_residual_scores",
+    "sparse_residual": "none: plain jnp, src/repro/core/sparse_index.py:325 "
+                       "score_rows",
+    "gathered_dot": "none: plain jnp, src/repro/serve/hybrid_head.py:116 "
+                    "(the exact columns)",
+}
+HEAD_SHAPES = {"qwen2-7b": (152064, 3584), "deepseek-67b": (102400, 8192)}
+
+
+def residual_problem(torch, g, *, q, c, n, d, r=None, width=None):
+    """Random inputs of R1-R3 (and R2's when ``r``): int8 and f32 rows
+    (N, d), scale, zero, queries (Q, d), candidates (Q, C) with -1 and
+    >= N among them (clipped), R2's rows (N, r) with pads and an all-pad
+    row and its queries (Q, width)."""
+    out = {"rows8": torch.randint(-128, 128, (n, d), generator=g,
+                                  device="cuda", dtype=torch.int8),
+           "scale": torch.rand(d, generator=g, device="cuda") * 0.02 + 1e-3,
+           "zero": torch.randn(d, generator=g, device="cuda"),
+           "q": torch.randn((q, d), generator=g, device="cuda"),
+           "cand": torch.randint(0, n, (q, c), generator=g, device="cuda",
+                                 dtype=torch.int32)}
+    out["cand"][0, 0] = -1
+    out["cand"][-1, -1] = n + 3
+    if d * n <= 1 << 28:
+        out["rows32"] = torch.randn((n, d), generator=g, device="cuda")
+    if r is not None:
+        cols = torch.randint(0, width - 1, (n, r), generator=g,
+                             device="cuda", dtype=torch.int32)
+        vals = torch.randn((n, r), generator=g, device="cuda")
+        pad = torch.rand((n, r), generator=g, device="cuda") < 0.3
+        pad[min(1, n - 1)] = True
+        out["cols"] = torch.where(pad, width - 1, cols).to(torch.int32)
+        out["vals"] = torch.where(pad, 0.0, vals)
+        qc = torch.randn((q, width), generator=g, device="cuda")
+        qc[:, -1] = 0.0
+        out["q_cols"] = qc
+    return out
+
+
+def residual_calls(ops, ref, p: dict) -> dict:
+    """name -> (kernel, plain) of the R kernels on ``p``'s arrays, each a
+    function of (queries, candidates) rows (R2's queries are its
+    ``q_cols``), so a check can call them on a batch, one query of it, or a
+    zero-padded bucket."""
+    calls = {
+        "dense_residual": (
+            lambda q, c: ops.dense_residual(p["rows8"], p["scale"],
+                                            p["zero"], c, q),
+            lambda q, c: ref.dense_residual_plain(p["rows8"], p["scale"],
+                                                  p["zero"], c, q))}
+    if "rows32" in p:
+        for bf16 in (False, True):
+            calls["gathered_dot" + ("_bf16" if bf16 else "")] = (
+                lambda q, c, b=bf16: ops.gathered_dot(p["rows32"], c, q,
+                                                      bf16_rows=b),
+                lambda q, c, b=bf16: ref.gathered_dot_plain(p["rows32"], c,
+                                                            q, b))
+    if "cols" in p:
+        calls["sparse_residual"] = (
+            lambda q, c: ops.sparse_residual(p["cols"], p["vals"], c, q),
+            lambda q, c: ref.sparse_residual_plain(p["cols"], p["vals"], c,
+                                                   q))
+    return calls
+
+
+def rows_batch_invariant(torch, fn, q, c, what: str) -> None:
+    """Each row of ``fn(q, c)`` equals the same query alone and the first
+    row of a bucket of 8 padded with zero queries, bit for bit."""
+    whole = fn(q, c)
+    for i in range(q.shape[0]):
+        check(torch.equal(fn(q[i:i + 1], c[i:i + 1])[0], whole[i]),
+              f"{what}: row {i} alone != its row of the batch")
+    pad_q = torch.cat([q[:1], torch.zeros((7,) + tuple(q.shape[1:]),
+                                          device=q.device)])
+    pad_c = torch.cat([c[:1], c[:1].expand(7, -1)])
+    check(torch.equal(fn(pad_q, pad_c)[0], whole[0]),
+          f"{what}: row 0 in a padded bucket of 8 != its row of the batch")
+
+
+def edge_cases_residual(torch, ops, ref) -> dict:
+    """R0-R3 against their plain versions bit for bit, twice equal, and each
+    row equal alone, in a padded bucket and in the batch: the test file's
+    widths (d or R of 1, 31, 33, 200), C = 1 and 9, ids of -1 and >= N,
+    int64 ids, pads and an all-pad row; R0 at (d, K) of the tests and of
+    the PQ heads; R1 and R3 at the heads' d = 3584 and 8192 on their
+    vocabularies' rows (C = 400 and 100, B = 32)."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    cases = []
+    for d, k in ((1, 1), (31, 31), (31, 1), (33, 11), (200, 100),
+                 (3584, 1792), (8192, 4096)):
+        q = torch.randn((5, d), generator=g, device="cuda")
+        centers = torch.randn((k, 16, d // k), generator=g, device="cuda")
+        what = f"R0 at d = {d}, K = {k}"
+        got = ops.adc_lut(q, centers)
+        check(torch.equal(got, ref.adc_lut_plain(q, centers))
+              and torch.equal(got, ops.adc_lut(q, centers)),
+              f"{what}: != plain or two launches differ")
+        rows_batch_invariant(torch, lambda a, _: ops.adc_lut(a, centers), q,
+                             q, what)
+        cases.append(what)
+    for width in (1, 31, 33, 200):
+        for c in (1, 9):
+            p = residual_problem(torch, g, q=5, c=c, n=40, d=width, r=width,
+                                 width=301)
+            for name, (kern, plain) in residual_calls(ops, ref, p).items():
+                what = f"{name} at width {width}, C = {c}"
+                q = p["q_cols"] if name == "sparse_residual" else p["q"]
+                got = kern(q, p["cand"])
+                check(torch.equal(got, plain(q, p["cand"]))
+                      and torch.equal(got, kern(q, p["cand"])),
+                      f"{what}: != plain or two launches differ")
+                check(torch.equal(got, kern(q, p["cand"].long())),
+                      f"{what}: int64 ids differ")
+                rows_batch_invariant(torch, kern, q, p["cand"], what)
+                cases.append(what)
+    for head, (v, d) in HEAD_SHAPES.items():
+        p = residual_problem(torch, g, q=32, c=400, n=v, d=d)
+        p["rows32"] = torch.randn((v, d), generator=g, device="cuda")
+        for name, (kern, plain) in residual_calls(ops, ref, p).items():
+            c = p["cand"] if name == "dense_residual" else p["cand"][:, :100]
+            what = f"{name} at {head}'s head, d = {d}"
+            check(torch.equal(kern(p["q"], c), plain(p["q"], c)),
+                  f"{what}: != plain")
+            rows_batch_invariant(torch, kern, p["q"][:8], c[:8], what)
+            cases.append(what)
+        del p
+    return {"cases": len(cases), "names": cases}
+
+
+def unique_rows(torch, cand, n: int) -> int:
+    return int(torch.unique(cand.long().clamp(0, n - 1)).numel())
+
+
+def run_residual_kernels(torch, idx, queries, launches, c1, c2) -> list:
+    """R0-R2 at the slice's main-path shapes and inputs (the LUT of its 128
+    queries; pass 2 on its pass-1 candidates, C = c1; pass 3 on its pass-2
+    candidates, C = c2) and R3 at qwen2-7b's head (V = 152064, d = 3584,
+    B = 32, C = 100): bit for bit with the plain version, ms beside the
+    bound, the plain version and the eager route the kernel backends
+    replaced (``library_ms``: the ``ref`` backend's einsum / gather / sum,
+    several launches where the JAX package's jnp takes several ops), and
+    each query's rows alone against the batch's on the eager route too
+    (``eager_rows_moved``: the rows whose bits moved).  Returns the four
+    kernel rows, with ``launches`` from the slice's main-path run (R3's is
+    set from ``lm_head``'s)."""
+    from repro_torch.core import residual as res
+    from repro_torch.core.engine import scatter_queries_compact
+    from repro_torch.core.pq import adc_lut
+    from repro_torch.core.sparse_index import score_rows
+    from repro_torch.kernels import _build, ops, ref
+
+    t_phase = time.perf_counter()
+    arrays = idx.engine.arrays
+    q_dims, q_vals, q_dense = queries
+    sq, srows = arrays.dense_residual, arrays.sparse_residual
+    n = arrays.num_points
+    cb = arrays.codebooks
+    lut = adc_lut(q_dense, cb, fixed_order=True)
+    s1, ids1 = idx.engine.pass1_topk(q_dims, q_vals, lut, c1)
+    extra = ops.dense_residual(sq.q, sq.scale, sq.zero, ids1, q_dense)
+    _, ids2 = res.reorder_pass(s1, ids1, extra, c2)
+    q_cols = scatter_queries_compact(q_dims, q_vals, arrays.d_active)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    v, d_head = HEAD_SHAPES["qwen2-7b"]
+    head_rows = torch.randn((v, d_head), generator=g, device="cuda")
+    head_h = torch.randn((32, d_head), generator=g, device="cuda")
+    head_ids = torch.randint(0, v, (32, 100), generator=g, device="cuda",
+                             dtype=torch.int32)
+    k, l, p = cb.centers.shape
+    nq, d = q_dense.shape
+    r_max = srows.cols.shape[1]
+
+    specs = {
+        "adc_lut": dict(
+            kern=lambda qq, _: ops.adc_lut(qq, cb.centers),
+            plain=lambda qq, _: ref.adc_lut_plain(qq, cb.centers),
+            lib=lambda qq, _: adc_lut(qq, cb),
+            q=q_dense, c=q_dense,
+            nbytes=4 * (nq * d + k * l * p + nq * k * l),
+            nops=2 * nq * k * l * p),
+        "dense_residual": dict(
+            kern=lambda qq, c: ops.dense_residual(sq.q, sq.scale, sq.zero,
+                                                  c, qq),
+            plain=lambda qq, c: ref.dense_residual_plain(
+                sq.q, sq.scale, sq.zero, c, qq),
+            lib=lambda qq, c: res.dense_residual_scores(sq, c, qq),
+            q=q_dense, c=ids1,
+            nbytes=(unique_rows(torch, ids1, n) * d + 8 * ids1.numel()
+                    + 4 * nq * d + 8 * d),
+            nops=2 * ids1.numel() * d + 4 * nq * d),
+        "sparse_residual": dict(
+            kern=lambda qq, c: ops.sparse_residual(srows.cols, srows.vals,
+                                                   c, qq),
+            plain=lambda qq, c: ref.sparse_residual_plain(
+                srows.cols, srows.vals, c, qq),
+            lib=lambda qq, c: score_rows(srows, c, qq),
+            q=q_cols, c=ids2, nops=2 * ids2.numel() * r_max),
+        "gathered_dot": dict(
+            kern=lambda qq, c: ops.gathered_dot(head_rows, c, qq),
+            plain=lambda qq, c: ref.gathered_dot_plain(head_rows, c, qq,
+                                                       False),
+            lib=lambda qq, c: torch.einsum("bd,bcd->bc", qq,
+                                           head_rows[c.long()]),
+            q=head_h, c=head_ids,
+            nbytes=(unique_rows(torch, head_ids, v) * d_head * 4
+                    + 8 * head_ids.numel() + 4 * 32 * d_head),
+            nops=2 * head_ids.numel() * d_head),
+    }
+    # R2 needs each candidate row's R entries and the query values at its
+    # live columns, each distinct (query, column) once
+    rows2 = srows.cols[ids2.long().clamp(0, n - 1)].long()        # (Q, C, R)
+    live = rows2 < arrays.d_active
+    qcol = (torch.arange(nq, device="cuda")[:, None, None]
+            * (arrays.d_active + 1) + rows2)[live]
+    specs["sparse_residual"]["nbytes"] = (
+        unique_rows(torch, ids2, n) * r_max * 8 + 8 * ids2.numel()
+        + 4 * int(torch.unique(qcol).numel()))
+    rows, readings = [], {}
+    for name, s in specs.items():
+        qq, c = s["q"], s["c"]
+        got = s["kern"](qq, c)
+        want = s["plain"](qq, c)
+        check(torch.equal(got, want) and torch.equal(got, s["kern"](qq, c)),
+              f"{name} at the main path's shapes: != plain or two launches "
+              "differ")
+        lib = s["lib"](qq, c)
+        err = assert_close(lib, got, f"{name}: the eager route")
+        rows_batch_invariant(torch, s["kern"], qq, c, f"{name} (main path)")
+        moved = sum(not torch.equal(s["lib"](qq[i:i + 1], c[i:i + 1])[0],
+                                    lib[i]) for i in range(qq.shape[0]))
+        m = {"ms": cuda_ms(lambda: s["kern"](qq, c)),
+             "plain_ms": cuda_ms(lambda: s["plain"](qq, c)),
+             "library_ms": cuda_ms(lambda: s["lib"](qq, c)),
+             "max_abs_err": max_abs(got, want)}
+        row = kernel_row(name, RESIDUAL_SOURCE, RESIDUAL_REPLACES[name],
+                         launches.get(name, 0), m, s["nbytes"], s["nops"])
+        row.update(shape=({"Q": nq, "K": k, "l": l, "p": p}
+                          if name == "adc_lut" else
+                          {"Q": qq.shape[0], "C": c.shape[1],
+                           "width": qq.shape[1]}),
+                   library="the eager route of the ref backend",
+                   eager_max_abs_diff=err, eager_rows_moved=moved)
+        if name != "adc_lut":
+            row["by_q"] = {str(b): {"ms": cuda_ms(lambda b=b: s["kern"](
+                qq[:b], c[:b])), "library_ms": cuda_ms(lambda b=b: s["lib"](
+                    qq[:b], c[:b]))} for b in (1, 8)}
+        rows.append(row)
+        readings[name] = row
+    edges = edge_cases_residual(torch, ops, ref)
+    emit("residual_checked", edge_cases=edges["cases"],
+         edge_case_names=edges["names"],
+         ptxas=ptxas_report(_build.build()["ptxas"]["residual"],
+                            ("adc_lut_kernel", "gathered_dot_kernel",
+                             "sparse_residual_kernel")),
+         seconds=time.perf_counter() - t_phase)
+    return rows
+
+
+def run_batch_invariance(torch, idx, queries) -> dict:
+    """Each of the slice's 128 queries gets the same bits whatever shares
+    its call: for ``cuda`` and ``cuda-packed``, fused and materialised, the
+    three-pass scores, ids and pass-1 candidates of every query alone
+    (Q = 1) and inside ``QueryService`` buckets of 8 and 32 (requests of 5
+    and 20 rows, no cache) equal its row of the Q = 128 call; and the LUT
+    (R0), the pass-2 (R1) and pass-3 (R2) terms of every query alone equal
+    its rows of the batch.  The eager route of the ``ref`` backend's
+    passes on the same candidates is counted beside it (rows whose bits
+    moved), not checked."""
+    from repro_torch.core import residual as res
+    from repro_torch.core.engine import (Backend, ScoringEngine,
+                                         scatter_queries_compact)
+    from repro_torch.core.pq import adc_lut
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import PLAIN_CALLS
+    from repro_torch.serve import QueryService
+
+    t_phase = time.perf_counter()
+    kw = dict(h=20, alpha=25, beta=6)
+    q_dims, q_vals, q_dense = queries
+    nq = q_dims.shape[0]
+    host = [t.cpu().numpy() for t in queries]
+    arrays = idx.engine.arrays
+    packed = dataclasses.replace(arrays, codes=torch.from_numpy(
+        ops.pack_codes(arrays.codes.cpu().numpy())).cuda(), codes_packed=True)
+    ops.reset_counts()
+    forms = {}
+    for backend, arrs in (("cuda", arrays), ("cuda-packed", packed)):
+        for fused in (True, False):
+            where = f"{backend} {'fused' if fused else 'materialised'}"
+            eng = ScoringEngine(arrays=arrs,
+                                backend=Backend.from_name(backend),
+                                fused=fused)
+            whole = eng.search(q_dims, q_vals, q_dense, **kw)
+            for i in range(nq):
+                alone = eng.search(q_dims[i:i + 1], q_vals[i:i + 1],
+                                   q_dense[i:i + 1], **kw)
+                check(all(torch.equal(a[0], w[i])
+                          for a, w in zip(alone, whole)),
+                      f"batch_invariance {where}: query {i} alone != its "
+                      "row of the Q = 128 call")
+            s_np, i_np = whole[0].cpu().numpy(), whole[1].cpu().numpy()
+            svc = QueryService(eng, buckets=(1, 8, 32), cache_size=0, **kw)
+            try:
+                for size in (5, 20):
+                    for lo in range(0, nq, size):
+                        rows = np.arange(lo, min(lo + size, nq))
+                        s, i = svc.search(*(a[rows] for a in host))
+                        check(np.array_equal(s, s_np[rows])
+                              and np.array_equal(i, i_np[rows]),
+                              f"batch_invariance {where}: rows {lo}.. in a "
+                              f"bucket != the Q = 128 call")
+                shapes = sorted(svc.jit_cache_info().batch_shapes)
+            finally:
+                svc.close()
+            check({8, 32} <= set(shapes),
+                  f"batch_invariance {where}: buckets {shapes}")
+            forms[where] = {"queries": nq, "alone_equal": True,
+                            "buckets": shapes, "bucket_rows_equal": True}
+    plain = dict(PLAIN_CALLS)
+    check(sum(plain.values()) == 0,
+          f"batch_invariance: the kernel backends ran plain versions: "
+          f"{plain}")
+    # the steps one at a time, on the cuda form's candidates
+    c1, c2 = idx.engine.candidate_counts(kw["h"], kw["alpha"], kw["beta"])
+    sq, srows = arrays.dense_residual, arrays.sparse_residual
+    lut = adc_lut(q_dense, arrays.codebooks, fixed_order=True)
+    s1, ids1 = idx.engine.pass1_topk(q_dims, q_vals, lut, c1)
+    q_cols = scatter_queries_compact(q_dims, q_vals, arrays.d_active)
+    steps = {
+        "lut": (lambda lo, hi, f: adc_lut(q_dense[lo:hi], arrays.codebooks,
+                                          fixed_order=f)),
+        "pass1": (lambda lo, hi, f: idx.engine.pass1_topk(
+            q_dims[lo:hi], q_vals[lo:hi], lut[lo:hi], c1)[1]),
+        "pass2": (lambda lo, hi, f: res.dense_residual_scores(
+            sq, ids1[lo:hi], q_dense[lo:hi], fixed_order=f)),
+        "pass3": (lambda lo, hi, f: res.sparse_residual_scores(
+            srows, ids1[lo:hi, :c2], q_cols[lo:hi], fixed_order=f)),
+    }
+    moved = {}
+    for name, fn in steps.items():
+        for fixed in (True, False):
+            whole = fn(0, nq, fixed)
+            n_moved = sum(not torch.equal(fn(i, i + 1, fixed)[0], whole[i])
+                          for i in range(nq))
+            if fixed:
+                check(n_moved == 0, f"batch_invariance: {name} of {n_moved} "
+                      "queries alone != their rows of the batch")
+            elif name in ("lut", "pass2", "pass3"):
+                moved[name] = n_moved
+    emit("batch_invariance", forms=forms, steps_equal_alone=list(steps),
+         eager_rows_moved=moved, launches=dict(ops.LAUNCHES),
+         seconds=time.perf_counter() - t_phase)
+    return forms
 
 
 # ---------------------------------------------------------------------------
@@ -2140,9 +2515,9 @@ def run_service(args, torch, idx, ds, slice_res):
     for r, (s, _) in zip(requests, cold):
         want = slice_res.scores[r]
         score_err = max(score_err, float(np.abs(s - want).max()))
-        check(bool((np.abs(s - want) <= ATOL + RTOL * np.abs(want)).all()),
-              f"service scores beyond rtol {RTOL} atol {ATOL} of the "
-              "search's")
+        check(np.array_equal(s, want),
+              "service scores != HybridIndex.search's on the same rows "
+              "(a bucket's query must get its batch row's bits)")
     info, shapes = svc.cache_info(), svc.jit_cache_info()
     check(set(shapes.batch_shapes) <= {1, 8, 32}
           and shapes.entries <= shapes.bound,
@@ -2463,8 +2838,8 @@ class InProcessCluster:
       changes the candidates, so it must be the router's, not a
       ``QueryService``'s.
 
-    Queries are padded to the router's bucket, since scores depend in
-    their last bits on the batch."""
+    Queries go unpadded, where the router pads them to its buckets: on the
+    kernel backends a query's result does not depend on its batch."""
 
     def __init__(self, torch, idx, num_scorers, h, alpha, beta):
         self.torch, self.idx, self.s = torch, idx, num_scorers
@@ -2484,17 +2859,11 @@ class InProcessCluster:
 
     def _queries(self, q_sparse, q_dense):
         from repro_torch.core.sparse_index import sparse_queries_to_padded
-        from repro_torch.serve.query_service import (DEFAULT_BUCKETS,
-                                                     bucket_for, pad_rows)
         qd, qv = sparse_queries_to_padded(q_sparse, self.idx.cols,
                                           nq_max=self.idx.params.nq_max)
-        qn = qd.shape[0]
-        b = bucket_for(qn, DEFAULT_BUCKETS)
         dev = self.idx.device
-        fill = self.idx.engine.arrays.d_active
         return ([self.torch.from_numpy(a).to(dev) for a in (
-            pad_rows(qd, b, fill=fill), pad_rows(qv, b),
-            pad_rows(np.asarray(q_dense, np.float32), b))], qn)
+            qd, qv, np.asarray(q_dense, np.float32))], qd.shape[0])
 
     def _delta(self):
         from repro_torch.core.engine import ScoringEngine
@@ -3107,6 +3476,9 @@ def run_reference_store(torch):
 # three configs of repro_torch.configs at their published widths (d_model,
 # vocab_size); K = d / 2 subspaces of l = 16
 LM_HEADS = ("qwen2-7b", "qwen2.5-14b", "deepseek-67b")
+# what one approx_topk (and one PQ decode step) launches once each: R0, K1,
+# R1, R3
+PQ_STEP_KERNELS = ("adc_lut", "lut16_adc", "dense_residual", "gathered_dot")
 LM_BATCHES = (1, 8, 32)
 
 
@@ -3166,12 +3538,13 @@ def run_lm_head(torch) -> dict:
     ``exact_topk`` in f32 (medians of CUDA-event readings); K1 at each
     shape (``head_k1_reading``); top-1 agreement and recall@50 against
     ``exact_topk`` at B = 32; ``max_memory_allocated``.  Fails unless each
-    ``approx_topk`` launches K1 exactly once and nothing else, returns the
-    ``ref`` backend's ids on the same params (f32, B = 8; scores within
-    rtol / atol), and ``approx_topk_bucketed`` returns ``approx_topk``'s
-    results on ragged batches (ids up to ties within rtol / atol: padding
-    changes the batch, and scores depend in their last bits on it).  Each
-    head is freed before the next is built.  Returns K1's launches."""
+    ``approx_topk`` launches K1, R0, R1 and R3 exactly once each and
+    nothing else, returns the ``ref`` backend's ids on the same params
+    (f32, B = 8; scores within rtol / atol), and ``approx_topk_bucketed``
+    returns ``approx_topk``'s results on ragged batches bit for bit (the
+    LUT and passes 2-3 sum in a fixed order, so padding changes no bit).
+    Each head is freed before the next is built.  Returns the launches of
+    each of the four kernels."""
     import math
 
     from repro_torch.configs import get_config
@@ -3181,7 +3554,7 @@ def run_lm_head(torch) -> dict:
     from repro_torch.serve import HybridLMHead
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     k, alpha = 50, 8
-    heads, launches = {}, 0
+    heads, launches = {}, dict.fromkeys(PQ_STEP_KERNELS, 0)
     for name in LM_HEADS:
         cfg = get_config(name)
         d, v = cfg.d_model, cfg.vocab_size
@@ -3208,11 +3581,13 @@ def run_lm_head(torch) -> dict:
             s, i = head.approx_topk(hp, hidden, None, k, alpha)
             torch.cuda.synchronize()
             got = dict(ops.LAUNCHES)
-            check(got["lut16_adc"] == 1 and sum(got.values()) == 1
+            check(all(got[n] == 1 for n in PQ_STEP_KERNELS)
+                  and sum(got.values()) == len(PQ_STEP_KERNELS)
                   and sum(PLAIN_CALLS.values()) == 0,
                   f"{where}: approx_topk launched {got}, plain "
                   f"{dict(PLAIN_CALLS)}")
-            launches += got["lut16_adc"]
+            for n in PQ_STEP_KERNELS:
+                launches[n] += got[n]
             check(tuple(i.shape) == (max(LM_BATCHES), k)
                   and bool(torch.isfinite(s).all())
                   and bool(((i >= 0) & (i < v)).all()),
@@ -3225,16 +3600,13 @@ def run_lm_head(torch) -> dict:
                 hp, hidden[:8], None, k, alpha)
             check(torch.equal(ci, ri), f"{where}: ids != the ref backend's")
             ref_err = assert_close(cs, rs, f"{where}: scores vs ref")
-            ties = 0
             for b in (3, 20, 40):
                 want = head.approx_topk(hp, ragged[:b], None, k, alpha)
                 got_b = head.approx_topk_bucketed(hp, ragged[:b], None, k,
                                                   alpha)
-                ties += topk_ties(got_b[1].cpu().numpy(),
-                                  got_b[0].cpu().numpy(),
-                                  want[1].cpu().numpy(),
-                                  want[0].cpu().numpy(),
-                                  f"{where}: bucketed B = {b}")
+                check(torch.equal(got_b[0], want[0])
+                      and torch.equal(got_b[1], want[1]),
+                      f"{where}: bucketed B = {b} != approx_topk")
             es, ei = head.exact_topk(hp, hidden, None, k)
             ids, eids = i.cpu().numpy(), ei.cpu().numpy()
             quality = {
@@ -3267,7 +3639,7 @@ def run_lm_head(torch) -> dict:
                 "build_s": build_s, "build_stage_s": hp.build_seconds,
                 "codes_bytes": tensor_bytes(hp.codes),
                 "params_device_bytes": tensor_bytes(hp),
-                "ref_max_abs_err": ref_err, "bucketed_tie_swaps": ties,
+                "ref_max_abs_err": ref_err, "bucketed_equal": True,
                 **quality, "by_batch": by_b,
                 "max_memory_allocated": torch.cuda.max_memory_allocated()}
             del hp, s, i, cs, ci, rs, ri, es, ei
@@ -3425,7 +3797,10 @@ def lockstep_decode(torch, ops, routes: dict, prompt) -> dict:
             b.synchronize()
             loop["ms"].append(a.elapsed_time(b))
             loop["k1"].append(ops.LAUNCHES["lut16_adc"])
-            check(sum(ops.LAUNCHES.values()) == loop["k1"][-1]
+            check(all(ops.LAUNCHES[n] == loop["k1"][-1]
+                      for n in PQ_STEP_KERNELS)
+                  and sum(ops.LAUNCHES.values())
+                  == len(PQ_STEP_KERNELS) * loop["k1"][-1]
                   and sum(PLAIN_CALLS.values()) == 0,
                   f"{name}: a decode step launched {dict(ops.LAUNCHES)}, "
                   f"plain {dict(PLAIN_CALLS)}")
@@ -3514,7 +3889,8 @@ def decode_cell(torch, cfg, *, pq: bool, check_cfg=None) -> tuple:
             torch.cuda.synchronize()
             got = dict(ops.LAUNCHES)
             want_k1 = DECODE_TOKENS if use_pq else 0
-            check(got["lut16_adc"] == want_k1 == sum(got.values())
+            check(all(got[n] == want_k1 for n in PQ_STEP_KERNELS)
+                  and sum(got.values()) == len(PQ_STEP_KERNELS) * want_k1
                   and sum(PLAIN_CALLS.values()) == 0,
                   f"{cfg.name} {route}, B = {b}: greedy_generate launched "
                   f"{got} (K1 {want_k1} expected), plain "
@@ -4141,6 +4517,71 @@ def dryrun_bounds(n: int, q: int, packed: bool) -> dict:
             "b4_bound_ms": b4_b, "b4_bound_by": "bytes"}
 
 
+def dryrun_library(torch, arrs: dict, blocks: int) -> dict:
+    """The library yardsticks over the whole 2^26-row shard at the check's
+    4 queries (the last of the first block): ``torch.sparse.mm`` of the
+    tail postings as an (N x d) CSR by the scattered queries, for B4, and
+    ``embedding_bag`` (mode sum) over the (subspace, code) rows of the LUT
+    in the plain scan's 2^21-row slices, their times summed, for K1; each
+    held to the kernel within rtol / atol (they sum in other orders).
+    Median of 3 CUDA-event readings after a warm-up."""
+    from repro_torch.core.sparse_index import PaddedInvertedIndex
+    from repro_torch.kernels import ops
+    from repro_torch.launch.retrieval_check import (CHECK_QUERIES,
+                                                    PLAIN_SLICE_ROWS)
+
+    codes = arrs["codes"]
+    n = codes.shape[0]
+    per = arrs["lut"].shape[0] // blocks
+    lo, hi = per - CHECK_QUERIES, per
+    lut = arrs["lut"][lo:hi]
+    qd, qv = arrs["q_dims"][lo:hi], arrs["q_vals"][lo:hi]
+    inv = PaddedInvertedIndex(rows=arrs["inv_rows"], vals=arrs["inv_vals"],
+                              num_points=n)
+    spmm = tail_yardstick(torch, inv, qd, qv)
+    b4_err = assert_close(spmm().T, ops.score_inverted_vf(inv, qd, qv),
+                          "torch.sparse.mm yardstick at N = 2^26")
+    b4_ms = cuda_ms(spmm, runs=3, warmup=1)
+    del spmm
+    gc.collect()
+    torch.cuda.empty_cache()
+    qn, k_sub, _ = lut.shape
+    e_w = lut.permute(1, 2, 0).reshape(k_sub * 16, qn).contiguous()
+    k1_ms, k1_err = 0.0, 0.0
+    for s in range(0, n, PLAIN_SLICE_ROWS):
+        c = codes[s:s + PLAIN_SLICE_ROWS]
+        e_idx = c.long() + 16 * torch.arange(k_sub, device=c.device)
+
+        def bag():
+            return torch.nn.functional.embedding_bag(e_idx, e_w, mode="sum")
+
+        k1_err = max(k1_err, assert_close(
+            bag().T, ops.lut16_adc(c, lut),
+            f"embedding_bag yardstick at rows {s}.. of N = 2^26"))
+        k1_ms += cuda_ms(bag, runs=3, warmup=1)
+        del e_idx
+    return {"queries": [lo, hi],
+            "b4_library_ms": b4_ms, "b4_library": "torch.sparse.mm",
+            "b4_library_max_abs_diff": b4_err,
+            "k1_library_ms": k1_ms,
+            "k1_library": f"embedding_bag in {PLAIN_SLICE_ROWS}-row slices, "
+                          "summed",
+            "k1_library_max_abs_diff": k1_err}
+
+
+def dryrun_inspect(arrs, backend, row_offset, blocks, results, dev, runs):
+    """``inspect_form``, and on the unpacked form the library yardsticks
+    (``dryrun_library``)."""
+    import torch
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch.retrieval_check import inspect_form
+
+    out = inspect_form(arrs, backend, row_offset, blocks, results, dev, runs)
+    if arrs["codes"].shape[1] == dr.K_PQ:
+        out["library"] = dryrun_library(torch, arrs, blocks)
+    return out
+
+
 def run_dryrun(torch) -> dict:
     """``launch.dryrun.lower_retrieval`` at its production size: shard 15
     of the 16-way ``data`` axis of a 2^30-row index, 2^26 rows (54.63 GB of
@@ -4158,19 +4599,16 @@ def run_dryrun(torch) -> dict:
     2^21-row slices, bit for bit; K2's fused top-100 and top-500 equal a
     stable top-k of the plain scan + the bias bit for bit, and the
     three-pass result equals passes 2-3 on those candidates; the plain
-    versions' ms are kept beside the kernels'; the blocked pass-1 rows of those
-    queries equal a block of just them bit for bit, and their three-pass
-    rows within rtol 1e-5 / atol 1e-4 with ids equal up to near-ties
-    (``topk_ties``: passes 2-3's cuBLAS products may add in another order
-    at another Q; the row says whether the bits moved); every id lies in
-    the shard's
-    global row range; the peak stays under the card's memory and the peak
+    versions' ms are kept beside the kernels'; the blocked pass-1 and
+    three-pass rows of those queries equal a block of just them bit for bit
+    (passes 2-3 sum in a fixed order, R1 and R2); the library yardsticks of
+    B4 and K1 at those queries (``dryrun_library``); every id lies in the
+    shard's global row range; the peak stays under the card's memory and the peak
     over the arrays under one bias block + the block slack; and the
     package's ``H100["hbm_bytes"]`` is not above the card's total memory.
     The launches of the timed calls are the path's count."""
     from repro_torch.kernels import ops
     from repro_torch.launch import dryrun as dr
-    from repro_torch.launch.retrieval_check import inspect_form
 
     t_phase = time.perf_counter()
     gc.collect()
@@ -4180,7 +4618,7 @@ def run_dryrun(torch) -> dict:
           f"dryrun: H100 hbm_bytes {H100['hbm_bytes']} > total {total}")
     ops.reset_counts()
     row = dr.lower_retrieval(multi_pod=False, device="cuda", seed=0,
-                             keep_results=True, inspect=inspect_form,
+                             keep_results=True, inspect=dryrun_inspect,
                              verbose=False)
     counted = dict(ops.LAUNCHES)
     n, blocks = row["rows"], row["query_blocks"]["blocks"]
@@ -4209,20 +4647,20 @@ def run_dryrun(torch) -> dict:
               and c["three_pass_equals_plain_route"],
               f"dryrun {form}: K2 differs from the plain scan + stable "
               f"top-k: {c}")
-        check(c["blocked_rows_equal_alone"]["pass1"],
-              f"dryrun {form}: blocked pass-1 rows differ from a block of "
-              f"their queries alone")
-        rows3 = f.pop("results")["check_three_pass"]
-        c["blocked_three_pass_ties"] = topk_ties(
-            *(t.cpu().numpy() for t in rows3["blocked"][::-1]),
-            *(t.cpu().numpy() for t in rows3["alone"][::-1]),
-            f"dryrun {form}: blocked three-pass rows against a block of "
-            f"their queries alone")
+        check(c["blocked_rows_equal_alone"]["pass1"]
+              and c["blocked_rows_equal_alone"]["three_pass"],
+              f"dryrun {form}: blocked pass-1 or three-pass rows differ "
+              f"from a block of their queries alone: "
+              f"{c['blocked_rows_equal_alone']}")
+        del f["results"]
         check(f["ids_in_shard"], f"dryrun {form}: ids {f['id_range']} off "
               f"[{row['row_offset']}, {row['row_offset'] + n})")
-        for call in ("pass1", "three_pass"):
-            check(f[call]["launches"] == {"lut16_adc_topk": blocks,
-                                          "score_inverted_vf": blocks},
+        for call, extra in (("pass1", ()),
+                            ("three_pass", ("dense_residual",
+                                            "sparse_residual"))):
+            want = dict.fromkeys(("lut16_adc_topk", "score_inverted_vf")
+                                 + extra, blocks)
+            check(f[call]["launches"] == want,
                   f"dryrun {form} {call}: launches {f[call]['launches']}")
             check(f[call]["max_memory_allocated"] < total,
                   f"dryrun {form} {call}: peak over the card's memory")
@@ -4241,7 +4679,8 @@ def run_dryrun(torch) -> dict:
     torch.cuda.empty_cache()
     return {"launches": main_path,
             "kernels": {form: f["kernels"]
-                        for form, f in row["forms"].items()}}
+                        for form, f in row["forms"].items()},
+            "library": row["forms"]["cuda"]["library"]}
 
 
 def main() -> int:
@@ -4281,11 +4720,15 @@ def main() -> int:
     dry = run_dryrun(torch)
     (idx, ds, queries, launches, c1, res, profiles,
      true_ids) = run_slice(args, torch)
+    run_batch_invariance(torch, idx, queries)
     rows = run_kernels(torch, idx, queries, launches, c1)
     rows[1]["profile_split"] = k2_profile_split(profiles)
     rows.append(run_score_inverted_vf(torch, idx, queries,
                                       launches["score_inverted_vf"]))
     rows.append(run_value_forward(torch, idx, queries))
+    residual_rows = run_residual_kernels(
+        torch, idx, queries, launches, c1,
+        idx.engine.candidate_counts(20, 25, 6)[1])
     sharded = run_sharded(torch, idx, queries, true_ids)
     params = idx.params
     # the service retires idx's generation at its refresh: idx goes after
@@ -4299,6 +4742,9 @@ def main() -> int:
     for r, path in zip(rows, ("mutable", "slice", "slice", "slice",
                               "value_forward")):
         r["path"] = path
+    for r in residual_rows:
+        r["path"] = "lm_head" if r["name"] == "gathered_dot" else "slice"
+    rows += residual_rows
     gc.collect()
     torch.cuda.empty_cache()
     durable = run_durable(torch, ds, params)
@@ -4318,7 +4764,13 @@ def main() -> int:
         r["cluster_launches"] = cluster[r["name"]]
         r["sharded_launches"] = sharded[r["name"]]
     # the PQ LM head's main path: K1 at the head's K (its wide variant)
-    rows[0]["lm_head_launches"] = run_lm_head(torch)["launches"]
+    head_launches = run_lm_head(torch)["launches"]
+    rows[0]["lm_head_launches"] = head_launches["lut16_adc"]
+    for r in rows:
+        if r["name"] == "gathered_dot":
+            r["launches"] = head_launches["gathered_dot"]
+        elif r["name"] in ("adc_lut", "dense_residual"):
+            r["lm_head_launches"] = head_launches[r["name"]]
     # the decode loop's main path: K1 once a PQ step at qwen2-7b
     rows[0]["lm_decode_launches"] = run_lm_decode(torch)["launches"]
     # the decode loops' closures hold the sessions in reference cycles
@@ -4339,6 +4791,8 @@ def main() -> int:
         r["dryrun_launches"] = dry["launches"][r["name"]]
         if r["name"] in ("lut16_adc", "lut16_adc_topk", "score_inverted_vf"):
             r["dryrun_kernels"] = dry["kernels"]
+        if r["name"] in ("lut16_adc", "score_inverted_vf"):
+            r["dryrun_library"] = dry["library"]
     emit("total", seconds=time.perf_counter() - t_start)
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -234,12 +234,14 @@ def _search3_local(codes, lut, inv_rows, inv_vals, res_q, res_scale, res_zero,
 
     # pass 2: + local dense residual rows, keep c2
     sq = ScalarQuant(q=res_q, scale=res_scale, zero=res_zero)
-    extra_d = res.dense_residual_scores(sq, ids1, q_dense)
+    fixed = backend.uses_kernels
+    extra_d = res.dense_residual_scores(sq, ids1, q_dense, fixed_order=fixed)
     s2, ids2 = res.reorder_pass(s1, ids1, extra_d, c2)
 
     # pass 3: + local sparse residual rows, local top-h
     rows = PaddedSparseRows(cols=sres_cols, vals=sres_vals)
-    extra_s = res.sparse_residual_scores(rows, ids2, q_cols)
+    extra_s = res.sparse_residual_scores(rows, ids2, q_cols,
+                                         fixed_order=fixed)
     s3, ids3 = res.reorder_pass(s2, ids2, extra_s, h)
     return s3, ids3 + row_offset                       # globalize ids
 

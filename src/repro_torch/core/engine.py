@@ -14,7 +14,8 @@ Counterpart of ``repro.core.engine``:
     onehot       one-hot ADC with bf16 LUT (kernels/ops.lut16_adc_onehot)
     cuda         LUT16, block-sparse and inverted-index kernels (kernels/ops);
                  pass 1 selects through the fused scan-and-select when
-                 c1 <= 1024
+                 c1 <= 1024; the LUT and passes 2-3 take the fixed-order
+                 kernels R0-R2
     cuda-packed  the same over codes packed two per byte
   On CPU tensors the kernel wrappers run their plain versions.
 """
@@ -296,8 +297,11 @@ def three_pass_search(arrays: IndexArrays, q_dims: torch.Tensor,
 
     ``fused`` routes pass 1 through the fused scan-and-select on the kernel
     backends whenever c1 fits its buffer: the same bits, minus the (Q, N)
-    round trip through device memory."""
-    lut = adc_lut(q_dense, arrays.codebooks)
+    round trip through device memory.  On the kernel backends the LUT and
+    passes 2-3 take the fixed-order kernels (R0-R2), so a query's result
+    has the same bits alone, padded into a bucket or in any batch."""
+    fixed = backend.uses_kernels
+    lut = adc_lut(q_dense, arrays.codebooks, fixed_order=fixed)
 
     # pass 1: approximate scores on the full shard, overfetch c1
     if _use_fused_pass1(backend, fused, c1):
@@ -307,12 +311,14 @@ def three_pass_search(arrays: IndexArrays, q_dims: torch.Tensor,
         s1, ids1 = res.topk_candidates(approx, c1)
 
     # pass 2: + dense residual, keep c2
-    extra_d = res.dense_residual_scores(arrays.dense_residual, ids1, q_dense)
+    extra_d = res.dense_residual_scores(arrays.dense_residual, ids1, q_dense,
+                                        fixed_order=fixed)
     s2, ids2 = res.reorder_pass(s1, ids1, extra_d, c2)
 
     # pass 3: + sparse residual, return h
     q_cols = scatter_queries_compact(q_dims, q_vals, arrays.d_active)
-    extra_s = res.sparse_residual_scores(arrays.sparse_residual, ids2, q_cols)
+    extra_s = res.sparse_residual_scores(arrays.sparse_residual, ids2, q_cols,
+                                         fixed_order=fixed)
     s3, ids3 = res.reorder_pass(s2, ids2, extra_s, h)
     return s3, ids3, ids1
 

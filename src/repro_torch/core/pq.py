@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..device import to_numpy
+from ..kernels import ops
 from ..kernels.lut16 import pack_codes, unpack_codes
 
 __all__ = [
@@ -134,14 +135,22 @@ def pq_decode(codes: torch.Tensor, codebooks: PQCodebooks) -> torch.Tensor:
     return c[kidx, codes.long()].reshape(codes.shape[0], k * p)
 
 
-def adc_lut(q_dense: torch.Tensor, codebooks: PQCodebooks) -> torch.Tensor:
+def adc_lut(q_dense: torch.Tensor, codebooks: PQCodebooks, *,
+            fixed_order: bool = False) -> torch.Tensor:
     """Asymmetric LUT (paper §4.1.1): T[q][k][c] = q^(k) · U^(k)_c.
 
-    q_dense: (Q, d) or (d,).  Returns (Q, K, l) (or (K, l)) float32."""
+    q_dense: (Q, d) or (d,).  Returns (Q, K, l) (or (K, l)) float32.
+    fixed_order=True (the kernel backends) takes ``ops.adc_lut`` (R0 on
+    the card), whose entries do not depend on Q; otherwise the JAX
+    package's einsum."""
     c = codebooks.centers
     single = q_dense.ndim == 1
     q = torch.atleast_2d(q_dense.float())
-    lut = torch.einsum("qkp,klp->qkl", _split_subspaces(q, c.shape[0]), c)
+    if fixed_order:
+        lut = ops.adc_lut(q, c)
+    else:
+        lut = torch.einsum("qkp,klp->qkl", _split_subspaces(q, c.shape[0]),
+                           c)
     return lut[0] if single else lut
 
 

@@ -8,12 +8,20 @@ query·residual terms, restoring (near-)exact inner products at O(h) cost.
 Every top-k here breaks ties toward the lowest index, as ``lax.top_k``
 does: ``torch.topk`` promises no order among equal values, so the passes
 use a stable descending sort.
+
+``fixed_order=True`` (the kernel backends) takes the residual terms from
+``kernels/ops.py``'s fixed-order wrappers (R1, R2 on the card): each
+score's sums are taken in an order that depends only on d or R, so a
+query's scores do not depend on the batch it is searched in.  The default
+keeps the JAX package's form (an einsum, ``torch.sum``), whose order of
+adds on the card may change with the shape.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..kernels import ops
 from ..kernels.ref import stable_topk
 from .pq import ScalarQuant
 from .sparse_index import PaddedSparseRows, score_rows
@@ -28,7 +36,8 @@ def topk_candidates(scores: torch.Tensor, k: int):
 
 
 def dense_residual_scores(sq: ScalarQuant, candidates: torch.Tensor,
-                          q_dense: torch.Tensor) -> torch.Tensor:
+                          q_dense: torch.Tensor, *,
+                          fixed_order: bool = False) -> torch.Tensor:
     """q^D · residual[cand] with int8 rows dequantized on the fly.
 
     candidates: (Q, C) (clipped into range, as ``mode="clip"``); q_dense:
@@ -36,6 +45,9 @@ def dense_residual_scores(sq: ScalarQuant, candidates: torch.Tensor,
     the dot, term for term as in the JAX package:
       q·(s*(r+128)+z) = (q*s)·r + 128*(q·s) + q·z
     """
+    if fixed_order:
+        return ops.dense_residual(sq.q, sq.scale, sq.zero, candidates,
+                                  q_dense)
     cand = candidates.long().clamp(0, sq.q.shape[0] - 1)
     rows = sq.q[cand]                                             # (Q, C, d)
     q_dense = q_dense.float()
@@ -56,6 +68,10 @@ def reorder_pass(prev_scores: torch.Tensor, prev_ids: torch.Tensor,
 
 
 def sparse_residual_scores(rows: PaddedSparseRows, candidates: torch.Tensor,
-                           q_cols_dense: torch.Tensor) -> torch.Tensor:
+                           q_cols_dense: torch.Tensor, *,
+                           fixed_order: bool = False) -> torch.Tensor:
     """Pass 3's sparse residual term (``score_rows`` on the candidates)."""
+    if fixed_order:
+        return ops.sparse_residual(rows.cols, rows.vals, candidates,
+                                   q_cols_dense)
     return score_rows(rows, candidates, q_cols_dense)

@@ -24,14 +24,19 @@ from .inverted import WINDOW, plan_score_inverted, score_inverted_cuda
 from .lut16 import (LUT_WIDTH, SMEM_PER_CTA, THREADS, candidate_buffer_width,
                     lut16_adc_cuda, lut16_adc_topk_cuda, pack_codes, plan_adc,
                     plan_topk, topk_ctas_per_sm, unpack_codes)
-from .ref import (PLAIN_CALLS, block_sparse_plain, bump,
+from .ref import (PLAIN_CALLS, adc_lut_plain, block_sparse_plain, bump,
+                  dense_residual_plain, gathered_dot_plain,
                   inverted_value_forward_plain, lut16_adc_plain,
-                  lut16_adc_topk_plain, score_inverted_plain, stable_topk)
+                  lut16_adc_topk_plain, score_inverted_plain,
+                  sparse_residual_plain, stable_topk)
+from .residual import (adc_lut_cuda, dense_residual_cuda, gathered_dot_cuda,
+                       sparse_residual_cuda)
 
 __all__ = ["lut16_adc", "lut16_adc_topk", "lut16_adc_onehot",
            "block_sparse_matmul", "block_sparse_matmul_bcsr",
            "bcsr_from_head", "dense_scores_materialized",
-           "inverted_value_forward", "score_inverted_vf", "pack_codes",
+           "inverted_value_forward", "score_inverted_vf", "adc_lut",
+           "dense_residual", "sparse_residual", "gathered_dot", "pack_codes",
            "unpack_codes", "candidate_buffer_width", "MAX_FUSED_CANDIDATES",
            "LAUNCHES", "reset_counts"]
 
@@ -44,7 +49,8 @@ _MAX_GRID_Y = 65535
 
 LAUNCHES = dict.fromkeys(
     ("lut16_adc", "lut16_adc_topk", "block_sparse_matmul",
-     "inverted_value_forward", "score_inverted_vf"), 0)
+     "inverted_value_forward", "score_inverted_vf", "adc_lut",
+     "dense_residual", "sparse_residual", "gathered_dot"), 0)
 
 
 def reset_counts() -> None:
@@ -337,6 +343,138 @@ def score_inverted_vf(index, q_dims: torch.Tensor,
                               plan_score_inverted(qn, n,
                                                   _sm_count(rows.device)))
     bump(LAUNCHES, "score_inverted_vf")
+    return out
+
+
+def _on_one_device(what: str, *named) -> None:
+    dev = named[0][1].device
+    for name, t in named:
+        if t.device != dev:
+            raise ValueError(f"{what}: {name} on {t.device}, not {dev}")
+
+
+def _typed(what: str, name: str, t: torch.Tensor, dtype, ndim: int):
+    if t.dtype != dtype or t.ndim != ndim:
+        raise TypeError(f"{what}: {name} must be {ndim}-D {dtype}, got "
+                        f"{t.dtype} {tuple(t.shape)}")
+    return t.contiguous()
+
+
+def _candidates(cand: torch.Tensor, n: int) -> torch.Tensor:
+    """(Q, C) candidate ids as the kernels read them: int32, contiguous;
+    wider ids are clipped into [0, N) first, as the kernels clip."""
+    if cand.ndim != 2:
+        raise ValueError(f"candidates must be (Q, C), got {tuple(cand.shape)}")
+    if cand.dtype != torch.int32:
+        cand = cand.long().clamp(0, max(n - 1, 0)).to(torch.int32)
+    return cand.contiguous()
+
+
+def _empty_rows(what: str, n: int) -> None:
+    if n == 0:
+        raise ValueError(f"{what}: no rows to gather candidates from")
+
+
+def adc_lut(q_dense: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """The ADC lookup table T[q][k][c] = q^(k) . U^(k)_c with each entry's
+    p products added in turn from +0: q_dense (Q, K * p), centers (K, l, p)
+    -> (Q, K, l) f32.  On CUDA this launches R0."""
+    q = q_dense.float()
+    k, l, p = centers.shape
+    if q.ndim != 2 or q.shape[1] != k * p:
+        raise ValueError(f"adc_lut: q_dense {tuple(q.shape)} does not split "
+                         f"into {k} subspaces of {p}")
+    if not q.is_cuda:
+        return adc_lut_plain(q, centers.float())
+    _on_one_device("adc_lut", ("q_dense", q), ("centers", centers))
+    c = _typed("adc_lut", "centers", centers, torch.float32, 3)
+    out = adc_lut_cuda(q.contiguous(), c)
+    bump(LAUNCHES, "adc_lut")
+    return out
+
+
+def dense_residual(rows: torch.Tensor, scale: torch.Tensor,
+                   zero: torch.Tensor, candidates: torch.Tensor,
+                   q_dense: torch.Tensor) -> torch.Tensor:
+    """Pass 2's term q . (scale * (rows[cand] + 128) + zero) as
+    (q * scale) . rows[cand] + 128 * sum(q * scale) + q . zero, each sum in
+    the fixed order of ``csrc/residual.cu``: rows (N, d) int8, scale and
+    zero (d,) f32, candidates (Q, C) (clipped into [0, N)), q_dense (Q, d)
+    -> (Q, C) f32.  On CUDA this launches R1."""
+    q = q_dense.float()
+    n, d = rows.shape
+    _empty_rows("dense_residual", n)
+    if q.ndim != 2 or q.shape[1] != d or scale.shape != (d,) \
+            or zero.shape != (d,) or candidates.shape[:1] != q.shape[:1]:
+        raise ValueError(f"dense_residual: rows {tuple(rows.shape)}, scale "
+                         f"{tuple(scale.shape)}, zero {tuple(zero.shape)}, "
+                         f"candidates {tuple(candidates.shape)}, q_dense "
+                         f"{tuple(q.shape)} do not match")
+    if not q.is_cuda:
+        return dense_residual_plain(rows, scale.float(), zero.float(),
+                                    candidates, q)
+    _on_one_device("dense_residual", ("q_dense", q), ("rows", rows),
+                   ("scale", scale), ("zero", zero),
+                   ("candidates", candidates))
+    out = dense_residual_cuda(
+        _typed("dense_residual", "rows", rows, torch.int8, 2),
+        _typed("dense_residual", "scale", scale, torch.float32, 1),
+        _typed("dense_residual", "zero", zero, torch.float32, 1),
+        _candidates(candidates, n), q.contiguous())
+    bump(LAUNCHES, "dense_residual")
+    return out
+
+
+def gathered_dot(rows: torch.Tensor, candidates: torch.Tensor,
+                 q: torch.Tensor, *, bf16_rows: bool = False) -> torch.Tensor:
+    """q . rows[cand] in the fixed order of ``csrc/residual.cu``: rows (N, d)
+    f32, candidates (Q, C) (clipped into [0, N)), q (Q, d) f32 -> (Q, C)
+    f32; ``bf16_rows`` rounds each gathered element to bf16 first.  The PQ
+    LM head's exact columns.  On CUDA this launches R3."""
+    q = q.float()
+    n, d = rows.shape
+    _empty_rows("gathered_dot", n)
+    if q.ndim != 2 or q.shape[1] != d or candidates.shape[:1] != q.shape[:1]:
+        raise ValueError(f"gathered_dot: rows {tuple(rows.shape)}, "
+                         f"candidates {tuple(candidates.shape)}, q "
+                         f"{tuple(q.shape)} do not match")
+    if not q.is_cuda:
+        return gathered_dot_plain(rows, candidates, q, bf16_rows)
+    _on_one_device("gathered_dot", ("q", q), ("rows", rows),
+                   ("candidates", candidates))
+    out = gathered_dot_cuda(
+        _typed("gathered_dot", "rows", rows, torch.float32, 2),
+        _candidates(candidates, n), q.contiguous(), bf16_rows)
+    bump(LAUNCHES, "gathered_dot")
+    return out
+
+
+def sparse_residual(cols: torch.Tensor, vals: torch.Tensor,
+                    candidates: torch.Tensor,
+                    q_cols: torch.Tensor) -> torch.Tensor:
+    """Pass 3's term sum_r vals[cand, r] * q_cols[q, cols[cand, r]] in the
+    fixed order of ``csrc/residual.cu``: cols (N, R) int32 (pad d_active),
+    vals (N, R) f32, candidates (Q, C) (clipped into [0, N)), q_cols
+    (Q, d_active + 1) f32 with a zero last slot -> (Q, C) f32.  On CUDA this
+    launches R2."""
+    n, r = cols.shape
+    _empty_rows("sparse_residual", n)
+    if vals.shape != cols.shape or q_cols.ndim != 2 \
+            or candidates.shape[:1] != q_cols.shape[:1]:
+        raise ValueError(f"sparse_residual: cols {tuple(cols.shape)}, vals "
+                         f"{tuple(vals.shape)}, candidates "
+                         f"{tuple(candidates.shape)}, q_cols "
+                         f"{tuple(q_cols.shape)} do not match")
+    if not q_cols.is_cuda:
+        return sparse_residual_plain(cols, vals, candidates, q_cols.float())
+    _on_one_device("sparse_residual", ("q_cols", q_cols), ("cols", cols),
+                   ("vals", vals), ("candidates", candidates))
+    out = sparse_residual_cuda(
+        _typed("sparse_residual", "cols", cols, torch.int32, 2),
+        _typed("sparse_residual", "vals", vals, torch.float32, 2),
+        _candidates(candidates, n),
+        _typed("sparse_residual", "q_cols", q_cols, torch.float32, 2))
+    bump(LAUNCHES, "sparse_residual")
     return out
 
 

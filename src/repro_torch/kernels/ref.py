@@ -15,6 +15,13 @@ the port's ``score_inverted``) bit for bit; ``score_inverted_plain`` is
 ``score_inverted`` itself, B4's plain version.  ``tf32_split`` is K3's
 operand split, done on the f32 bits as ``cvt.rna.tf32.f32`` does it.
 
+``adc_lut_plain``, ``dense_residual_plain``, ``sparse_residual_plain`` and
+``gathered_dot_plain`` (R0-R3, ``csrc/residual.cu``) replay those kernels'
+fixed order with tensor ops (``fixed_order_sum``): a warp's lane j adds the
+terms j, j + 32, ... in turn from +0, then a xor butterfly; R0 adds its p
+terms in turn.  Each product and add is a tensor op of its own, so they
+match the kernels bit for bit, and no reduction's order depends on Q or C.
+
 ``lut16_adc_ref``, ``block_sparse_ref`` and ``bcsr_to_dense_ref`` carry the
 JAX package's oracle names and signatures (``repro/kernels/ref.py``), as
 adapters over the same arithmetic; they count no plain-version call.
@@ -30,12 +37,15 @@ from .lut16 import unpack_codes
 
 __all__ = ["lut16_adc_plain", "lut16_adc_topk_plain", "block_sparse_plain",
            "inverted_value_forward_plain", "score_inverted_plain",
-           "stable_topk", "tf32_split", "lut16_adc_ref", "block_sparse_ref",
+           "stable_topk", "tf32_split", "fixed_order_sum", "adc_lut_plain",
+           "dense_residual_plain", "sparse_residual_plain",
+           "gathered_dot_plain", "lut16_adc_ref", "block_sparse_ref",
            "bcsr_to_dense_ref", "PLAIN_CALLS", "bump"]
 
 PLAIN_CALLS = dict.fromkeys(
     ("lut16_adc", "lut16_adc_topk", "block_sparse_matmul",
-     "inverted_value_forward", "score_inverted_vf"), 0)
+     "inverted_value_forward", "score_inverted_vf", "adc_lut",
+     "dense_residual", "sparse_residual", "gathered_dot"), 0)
 
 _COUNT_LOCK = threading.Lock()
 
@@ -183,6 +193,81 @@ def score_inverted_plain(index, q_dims: torch.Tensor,
     from ..core.sparse_index import score_inverted
     bump(PLAIN_CALLS, "score_inverted_vf")
     return score_inverted(index, q_dims, q_vals)
+
+
+def fixed_order_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in R1-R3's order: term i goes to lane
+    i % 32, each lane adds its terms in turn from +0 (the tail padded with
+    +0, which changes no bit of a sum that starts at +0), then the lanes
+    meet pairwise, lane j with lane j + h for h = 16, 8, 4, 2, 1."""
+    length = x.shape[-1]
+    steps = -(-length // 32)
+    if steps * 32 != length:
+        x = torch.nn.functional.pad(x, (0, steps * 32 - length))
+    x = x.reshape(*x.shape[:-1], steps, 32)
+    acc = torch.zeros(x.shape[:-2] + (32,), dtype=x.dtype, device=x.device)
+    for t in range(steps):
+        acc = acc + x[..., t, :]
+    while acc.shape[-1] > 1:
+        half = acc.shape[-1] // 2
+        acc = acc[..., :half] + acc[..., half:]
+    return acc[..., 0]
+
+
+def _clip(cand: torch.Tensor, n: int) -> torch.Tensor:
+    return cand.long().clamp(0, n - 1)
+
+
+def adc_lut_plain(q: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """R0's plain version: q (Q, K * p) f32, centers (K, l, p) f32 ->
+    (Q, K, l), each entry's p products added in turn from +0."""
+    bump(PLAIN_CALLS, "adc_lut")
+    k, l, p = centers.shape
+    qs = q.reshape(q.shape[0], k, p)
+    acc = torch.zeros((q.shape[0], k, l), dtype=torch.float32,
+                      device=q.device)
+    for j in range(p):
+        acc = acc + qs[:, :, None, j] * centers[None, :, :, j]
+    return acc
+
+
+def dense_residual_plain(rows: torch.Tensor, scale: torch.Tensor,
+                         zero: torch.Tensor, cand: torch.Tensor,
+                         q: torch.Tensor) -> torch.Tensor:
+    """R1's plain version: (q * scale) . rows[cand] + 128 * sum(q * scale)
+    + q . zero, the three sums in the fixed order; rows (N, d) int8, cand
+    (Q, C) clipped into [0, N), q (Q, d) f32 -> (Q, C)."""
+    bump(PLAIN_CALLS, "dense_residual")
+    qs = q * scale[None, :]
+    base = 128.0 * fixed_order_sum(qs) + fixed_order_sum(q * zero[None, :])
+    r = rows[_clip(cand, rows.shape[0])].float()                  # (Q, C, d)
+    return fixed_order_sum(qs[:, None, :] * r) + base[:, None]
+
+
+def gathered_dot_plain(rows: torch.Tensor, cand: torch.Tensor,
+                       q: torch.Tensor, bf16_rows: bool) -> torch.Tensor:
+    """R3's plain version: q . rows[cand] in the fixed order; rows (N, d)
+    f32 (each element rounded to bf16 first when ``bf16_rows``), cand
+    (Q, C) clipped into [0, N), q (Q, d) f32 -> (Q, C)."""
+    bump(PLAIN_CALLS, "gathered_dot")
+    r = rows[_clip(cand, rows.shape[0])].float()                  # (Q, C, d)
+    if bf16_rows:
+        r = r.to(torch.bfloat16).float()
+    return fixed_order_sum(q[:, None, :] * r)
+
+
+def sparse_residual_plain(cols: torch.Tensor, vals: torch.Tensor,
+                          cand: torch.Tensor,
+                          q_cols: torch.Tensor) -> torch.Tensor:
+    """R2's plain version: sum_r vals[cand, r] * q_cols[q, cols[cand, r]] in
+    the fixed order; cand clipped into [0, N), column ids into
+    [0, d_active], q_cols (Q, d_active + 1) -> (Q, C)."""
+    bump(PLAIN_CALLS, "sparse_residual")
+    c = _clip(cand, cols.shape[0])
+    qn, nc = c.shape
+    cc = cols[c].long().clamp(0, q_cols.shape[1] - 1)             # (Q, C, R)
+    qv = torch.gather(q_cols, 1, cc.reshape(qn, -1)).reshape(cc.shape)
+    return fixed_order_sum(vals[c] * qv)
 
 
 def lut16_adc_ref(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:

@@ -107,7 +107,8 @@ def pass_breakdown(engine, q_dims, q_vals, q_dense, *, h: int,
 
     c1, _ = engine.candidate_counts(h, alpha, beta)
     cuda = engine.arrays.codes.device.type == "cuda"
-    lut = adc_lut(q_dense, engine.arrays.codebooks)
+    lut = adc_lut(q_dense, engine.arrays.codebooks,
+                  fixed_order=engine.backend.uses_kernels)
 
     def pass1():
         return engine.pass1_topk(q_dims, q_vals, lut, c1)

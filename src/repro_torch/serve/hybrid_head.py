@@ -36,6 +36,7 @@ from ..core.engine import Backend
 from ..core.pq import (PQCodebooks, ScalarQuant, adc_lut, pack_codes,
                        pq_decode, pq_encode, scalar_quantize, train_codebooks)
 from ..device import full_f32, resolve_device
+from ..kernels import ops
 from ..kernels.ref import stable_topk
 from .query_service import bucket_for
 
@@ -114,10 +115,17 @@ class HybridLMHead:
                        ids: torch.Tensor) -> torch.Tensor:
         """h (B, d) · head[:, ids] (B, C) in the model's compute dtype: in
         bf16 the operands are rounded to bf16 and the f32 product to bf16,
-        as ``jnp.einsum`` on bf16 operands returns it, then widened."""
+        as ``jnp.einsum`` on bf16 operands returns it, then widened.  On
+        the kernel backends the dot is ``ops.gathered_dot`` (R3 on the
+        card), summed in an order that does not depend on B."""
+        bf16 = self.cfg.dtype == "bfloat16"
+        if self.backend.uses_kernels:
+            q = h.to(torch.bfloat16).float() if bf16 else h
+            exact = ops.gathered_dot(hp.head.T, ids, q, bf16_rows=bf16)
+            return exact.to(torch.bfloat16).float() if bf16 else exact
         cols = hp.head.T[ids.long()]                                  # (B, C, d)
         with full_f32():
-            if self.cfg.dtype == "bfloat16":
+            if bf16:
                 exact = torch.einsum("bd,bcd->bc",
                                      h.to(torch.bfloat16).float(),
                                      cols.to(torch.bfloat16).float())
@@ -134,10 +142,13 @@ class HybridLMHead:
         backends), minus the count penalty; top c1 = min(alpha * k, V).
         Pass 2: + the int8 residual; keep min(max(2k, 16), c1).
         Pass 3: exact head columns, ranked by (score desc, vocab id asc),
-        the full-vocab argmax's tie-break."""
+        the full-vocab argmax's tie-break.  On the kernel backends the
+        LUT, pass 2 and pass 3 take the fixed-order kernels (R0, R1, R3),
+        so a row's result does not depend on B."""
         dev = hp.codes.device
         h = _as(hidden, dev, torch.float32)
-        lut = adc_lut(h, hp.codebooks)                               # (B, K, 16)
+        fixed = self.backend.uses_kernels
+        lut = adc_lut(h, hp.codebooks, fixed_order=fixed)            # (B, K, 16)
         scores = eng.adc_scores(hp.codes, lut, self.backend,
                                 packed=hp.codes_packed)              # (B, V)
         counts = None
@@ -146,7 +157,8 @@ class HybridLMHead:
             scores = scores - penalty * counts
         c1 = min(alpha * k, scores.shape[1])
         s1, ids1 = res.topk_candidates(scores, c1)
-        corr = res.dense_residual_scores(hp.residual, ids1, h)
+        corr = res.dense_residual_scores(hp.residual, ids1, h,
+                                         fixed_order=fixed)
         _, ids2 = res.reorder_pass(s1, ids1, corr, min(max(2 * k, 16), c1))
         exact = self._exact_columns(hp, h, ids2)
         if counts is not None:

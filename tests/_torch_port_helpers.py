@@ -1,11 +1,15 @@
 """Shared helpers of the port tests (tests/test_torch_*.py): carrying a JAX
-index across to the port, the tie-aware comparison of top-k results, and
-what the cluster tests share.
+index across to the port, the tie-aware comparison of top-k results, a
+test worker's share of torch's threads and its environment, and what the
+cluster tests share.
 
 XLA and PyTorch sum in different orders, so scores agree only within a
 tolerance, and two candidates whose reference scores lie within that
 tolerance may swap places.  ``assert_topk_match`` accepts exactly those
 swaps and nothing else."""
+
+import contextlib
+import os
 
 import numpy as np
 import pytest
@@ -70,6 +74,45 @@ def assert_topk_match(got_s, got_ids, want_s, want_ids, *, rtol=RTOL,
                 ok = _near(got_s[r, p], want_s[r, -1], rtol, atol)
             assert ok, (f"row {r} position {p}: id {gid} where the "
                         f"reference has {int(want_ids[r, p])} without a tie")
+
+
+def worker_thread_share() -> int:
+    """This test worker's share of the cores: all of them in a serial run,
+    cores // workers under pytest-xdist (at least one)."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    return max(1, len(os.sched_getaffinity(0)) // max(workers, 1))
+
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """torch's intra-op threads set to ``n`` inside the block and restored
+    after it.  Each xdist worker starts with one thread a core, so six
+    workers on eight cores run 48 OpenMP threads, whose barriers spin for
+    threads the other workers hold off the cores: a CPU search of many
+    small parallel ops then takes minutes instead of seconds."""
+    import torch
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
+@contextlib.contextmanager
+def environ_kept():
+    """``os.environ`` as it was before the block, after it.  The JAX
+    package's ``launch.dryrun`` and ``launch.perf_probe`` set ``XLA_FLAGS``
+    to 512 host devices when they are imported; every xdist worker imports
+    every test module, so without this each worker's later subprocesses
+    (the JAX cluster tests' nodes) started with 512 devices and some 800
+    threads each, and a cluster test could hang."""
+    before = dict(os.environ)
+    try:
+        yield
+    finally:
+        os.environ.clear()
+        os.environ.update(before)
 
 
 # -- cluster tests (tests/test_torch_cluster*.py) -----------------------------

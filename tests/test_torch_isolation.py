@@ -1,6 +1,6 @@
 """The port stands alone: no file of src/repro_torch, and none of
-chip_smoke.py, tools/lut16_probe.py, tools/context_probe.py and
-tools/b4_probe.py, imports
+chip_smoke.py, tools/lut16_probe.py, tools/context_probe.py,
+tools/b4_probe.py and tools/residual_probe.py, imports
 jax or the JAX package ``repro``, and the package (its serving, cluster,
 persistence, observability, checkpoint and launch subpackages included)
 imports in a process where jax cannot be imported at all (its configs,
@@ -22,7 +22,8 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tools" / "lut16_probe.py",
-    REPO / "tools" / "context_probe.py", REPO / "tools" / "b4_probe.py"]
+    REPO / "tools" / "context_probe.py", REPO / "tools" / "b4_probe.py",
+    REPO / "tools" / "residual_probe.py"]
 
 
 def _imported_roots(path: Path) -> set[str]:

@@ -225,6 +225,13 @@ def test_cpu_tensors_take_plain_versions():
                               vals=torch.ones((1, 3)), num_points=3)
     ops.score_inverted_vf(inv, torch.zeros((2, 1), dtype=torch.int32),
                           torch.ones((2, 1)))
+    cand = torch.zeros((2, 3), dtype=torch.int32)
+    ops.adc_lut(torch.ones((2, 4)), torch.ones((2, 16, 2)))
+    ops.dense_residual(torch.ones((3, 4), dtype=torch.int8), torch.ones(4),
+                       torch.zeros(4), cand, torch.ones((2, 4)))
+    ops.gathered_dot(torch.ones((3, 4)), cand, torch.ones((2, 4)))
+    ops.sparse_residual(torch.zeros((3, 2), dtype=torch.int32),
+                        torch.ones((3, 2)), cand, torch.ones((2, 5)))
     assert all(v == 0 for v in ops.LAUNCHES.values())
     assert all(v == 1 for v in ref.PLAIN_CALLS.values())
     ops.reset_counts()

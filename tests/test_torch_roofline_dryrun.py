@@ -17,10 +17,11 @@ import jax
 import numpy as np
 import pytest
 import torch
+from _torch_port_helpers import (environ_kept, torch_threads,
+                                 worker_thread_share)
 
 from repro.configs import SHAPES as REF_SHAPES, get_config as ref_config
 from repro.core.distributed import make_sharded_search3_fn
-from repro.launch import perf_probe as ref_probe
 from repro.launch.mesh import make_test_mesh
 from repro.roofline import analysis as ref_analysis
 from repro.roofline import report as ref_report
@@ -30,6 +31,9 @@ from repro_torch.models import Model
 from repro_torch.roofline import (H100, analysis, measured_bytes, report,
                                   roofline_from_cost)
 
+with environ_kept():                    # it sets XLA_FLAGS to 512 devices
+    from repro.launch import perf_probe as ref_probe
+
 REPO = Path(__file__).resolve().parent.parent
 ALL_CONFIGS = list_archs(include_smoke=True)
 FAMILY_SMOKES = ["stablelm-1.6b-smoke", "qwen2-moe-a2.7b-smoke",
@@ -38,6 +42,15 @@ FAMILY_SMOKES = ["stablelm-1.6b-smoke", "qwen2-moe-a2.7b-smoke",
 TINY = {"train": ShapeConfig("t", 32, 2, "train"),
         "prefill": ShapeConfig("p", 32, 2, "prefill"),
         "decode": ShapeConfig("d", 32, 2, "decode")}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _thread_share():
+    """The file's torch work (the CPU shard's search above all) runs on
+    this worker's share of the cores: under ``-n 6`` on 8 cores one
+    thread, where torch's default of 8 a worker stalled the search."""
+    with torch_threads(worker_thread_share()):
+        yield
 
 
 @pytest.mark.parametrize("name", ALL_CONFIGS)
@@ -232,9 +245,8 @@ def test_retrieval_checks_and_blocks(retrieval_blocks):
             c = f["check"]
             assert f["ids_in_shard"] and all(c[k] for k in (
                 "block_tail_equals_plain", "tail_equals_plain",
-                "k1_equals_plain", "three_pass_equals_plain_route",
-                "blocked_three_pass_ids_equal",
-                "blocked_three_pass_close")), (form, c)
+                "k1_equals_plain", "three_pass_equals_plain_route")), (
+                form, c)
             assert c["fused_equals_plain"] == {
                 str(dryrun.H): True, str(dryrun.ALPHA * dryrun.H): True}, (
                 form, c)
