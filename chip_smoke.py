@@ -21,7 +21,8 @@ durable service with its snapshot store and WAL, recovered bit for bit
 (phase ``durable``), the cluster tier — a ``LocalCluster`` of a primary,
 two scorers and a replica, each a process of its own on the card, driven
 through ``ClusterRouter`` and held bit for bit to in-process fan-outs
-through a ragged stream, mutations, two compactions, healed frame faults,
+through a ragged stream, mutations, two compactions (a second router
+searching from a thread all through the first), healed frame faults,
 a scorer kill and a failover, and to exact search by recall (phase
 ``cluster``) — ``python -m
 repro_torch.launch.serve --retrieval`` plain, durable and restored, and
@@ -32,9 +33,11 @@ width and depth — ``greedy_generate`` and ``ServeSession`` with the exact
 head and with the PQ head, K1 once a step, decode held to forward (phase
 ``lm_decode``) — the other families of the LM zoo: recurrentgemma-9b at
 full width and depth through both heads (K1 at V = 256000, K = 2048 a PQ
-step), mamba2-780m at full size and qwen2-moe-a2.7b at full width (8 of
-24 layers) through the exact head, and the six smoke configs of these
-families (phase ``lm_families``) — and the store the JAX
+step) and qwen2-moe-a2.7b at full width and depth through both heads
+(K1 at V = 151936, K = 1024; each session reached by handing the f32 tree
+over, ``donate=True``), mamba2-780m at full size through the exact head,
+and the six smoke configs of these families (phase ``lm_families``) — and
+the store the JAX
 package wrote (``tests/data/reference_store``) recovered on the card and
 held to the reference's results (phase ``reference_store``).  It holds
 every kernel against its plain PyTorch version on the card, at the
@@ -68,6 +71,7 @@ rows.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
@@ -78,6 +82,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -2089,9 +2094,31 @@ def table_rows(torch, ds, specs, hybrid_params, alpha, beta, h=20) -> dict:
     return rows
 
 
-def run_tables(args, torch, ds):
-    from repro_torch.core.hybrid import HybridIndexParams
+def table2_datasets(args) -> dict:
+    """Table 2's data (benchmarks/table2.py): Netflix- and Movielens-shaped
+    at its widths (d_dense 64, where the paper has 300) and its docstring's
+    row counts, scaled with --rows.  Host work alone: ``main`` runs it in a
+    thread while the cluster phase waits on its nodes.  Returns ``{tag:
+    (dataset, (rows, d_sparse, nnz_per_row, seed), seconds to make it)}``."""
     from repro_torch.data import make_hybrid_dataset
+
+    out = {}
+    for tag, rows, d_sparse, nnz, seed in (("netflix", 500000, 18000, 48, 0),
+                                           ("movielens", 140000, 27000, 32,
+                                            1)):
+        rows = max(1000, rows * args.rows // 524288)
+        t0 = time.perf_counter()
+        ds2 = make_hybrid_dataset(num_points=rows, num_queries=16,
+                                  d_sparse=d_sparse, d_dense=64,
+                                  nnz_per_row=nnz, seed=seed)
+        out[tag] = ds2, (rows, d_sparse, nnz, seed), time.perf_counter() - t0
+    return out
+
+
+def run_tables(args, torch, ds, table2):
+    """Tables 3 and 2 on the card; ``table2`` is the future of
+    ``table2_datasets``."""
+    from repro_torch.core.hybrid import HybridIndexParams
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import PLAIN_CALLS
 
@@ -2121,18 +2148,12 @@ def run_tables(args, torch, ds):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # Table 2 (benchmarks/table2.py): Netflix- and Movielens-shaped data at
-    # its widths (d_dense 64, where the paper has 300) and its docstring's
-    # row counts, scaled with --rows
-    for tag, rows, d_sparse, nnz, seed in (("netflix", 500000, 18000, 48, 0),
-                                           ("movielens", 140000, 27000, 32,
-                                            1)):
-        rows = max(1000, rows * args.rows // 524288)
-        t0 = time.perf_counter()
-        ds2 = make_hybrid_dataset(num_points=rows, num_queries=16,
-                                  d_sparse=d_sparse, d_dense=64,
-                                  nnz_per_row=nnz, seed=seed)
-        gen_s = time.perf_counter() - t0
+    # Table 2 (benchmarks/table2.py), on the data table2_datasets made
+    t0 = time.perf_counter()
+    data2 = table2.result()
+    data_wait_s = time.perf_counter() - t0
+    for tag in list(data2):
+        ds2, (rows, d_sparse, nnz, seed), gen_s = data2.pop(tag)
         torch.cuda.reset_peak_memory_stats()
         table = table_rows(torch, ds2, (
             ("dense_brute_force", {}, 16),
@@ -2159,7 +2180,8 @@ def run_tables(args, torch, ds):
           and launches["block_sparse_matmul"] >= 1
           and launches["score_inverted_vf"] >= 1,
           f"the tables did not launch K1, K2, K3 and B4: {launches}")
-    emit("tables", launches=launches, seconds=time.perf_counter() - t_phase)
+    emit("tables", launches=launches, table2_data_wait_s=data_wait_s,
+         seconds=time.perf_counter() - t_phase)
     return launches
 
 
@@ -2819,6 +2841,13 @@ def run_durable(torch, ds, params):
 # primary's delta engine goes from K2 to K1 + sort
 CLUSTER_INSERTS = 2048
 CLUSTER_DELETES = 256
+CLUSTER_SEARCH_LIMIT_S = 120.0   # a search's limit after the compaction
+# the share of the searches during a compaction that may be refused
+# StaleGeneration: the router's 8 retries span 1.4 s, a scorer's reload
+# about 19 s on the card, so a fan-out pinned to the new generation before
+# every scorer holds it is refused (ROADMAP C10, open); with the scorers
+# reloading in turn, 17 of 370 were
+CLUSTER_REFUSED_SHARE = 0.2
 
 
 class InProcessCluster:
@@ -3097,11 +3126,16 @@ def run_cluster(torch, ds, params):
         recall = {"after_deletes": router_recall("after the deletes")}
         delta_slots = idx.mutable_state.delta.capacity
 
-        def compact(want_gen):
+        def compact(want_gen, searched=False):
             """Compact through the router (until every follower serves the
-            new generation) and in-process; parity and recall after."""
+            new generation) and in-process; parity and recall after.  With
+            ``searched``, a second router searches from a thread all
+            through the compaction (``searches_during``)."""
             t0 = time.perf_counter()
-            gen = router.compact()
+            if searched:
+                gen = searches_during(router.compact)
+            else:
+                gen = router.compact()
             compact_s.append(time.perf_counter() - t0)
             comp.idx = comp.idx.compact()
             check(gen == want_gen, f"compaction went to generation {gen}")
@@ -3130,11 +3164,94 @@ def run_cluster(torch, ds, params):
             deleted.update(batch)
             parity(router, f"after the mutations of seed {seed}")
 
+        def searches_during(compaction):
+            """Run ``compaction`` while a second router searches from a
+            thread, 32-row fan-outs and one-row direct reads in turns, 20
+            ms apart, and once each after it.  A search pinned before a
+            generation flip gets StaleGeneration from a node and retries
+            (C8: a fan-out cut by one shard's refusal must settle its
+            other entries, or the retry waits on them for good); while the
+            scorers reload, a fan-out may spend the router's retries and
+            raise StaleGeneration (C10, open), which is counted and held
+            to ``CLUSTER_REFUSED_SHARE`` of the searches.  Every search
+            must end within the thread's time limit, the ones that return
+            without duplicate ids in a row and without an id deleted
+            before the compaction began, and the two after it must
+            return."""
+            from repro_torch.serve.cluster import RemoteError
+            bg = cluster.router(h=h, alpha=alpha, beta=beta, timeout=120)
+            routers.append(bg)
+            stop, box = threading.Event(), {}
+            walls = {"returned": [], "refused": []}
+            dead = np.fromiter(deleted, np.int64)
+
+            def search(i, refusable):
+                rows = rows32 if i % 2 == 0 else rows32[i % 32:i % 32 + 1]
+                t0 = time.perf_counter()
+                try:
+                    _, ids = bg.search_sparse(ds.q_sparse[rows],
+                                              ds.q_dense[rows])
+                except RemoteError as e:
+                    if not refusable or "StaleGeneration" not in str(e):
+                        raise
+                    walls["refused"].append(time.perf_counter() - t0)
+                    return
+                walls["returned"].append(time.perf_counter() - t0)
+                for row in ids:
+                    live = row[row >= 0]
+                    check(len(np.unique(live)) == len(live),
+                          f"a search during compaction served "
+                          f"duplicate ids: {row}")
+                    check(not np.isin(live, dead).any(),
+                          "a search during compaction served an id "
+                          f"deleted before it began: "
+                          f"{live[np.isin(live, dead)]}")
+
+            def search_loop():
+                try:
+                    i = 0
+                    while not stop.is_set():
+                        search(i, refusable=True)
+                        i += 1
+                        time.sleep(0.02)
+                    search(0, refusable=False)      # a fan-out after it
+                    search(1, refusable=False)      # a direct read after it
+                except BaseException as e:          # raised below
+                    box["error"] = e
+
+            t = threading.Thread(target=search_loop, daemon=True)
+            t.start()
+            try:
+                gen = compaction()
+            finally:
+                stop.set()
+                t.join(CLUSTER_SEARCH_LIMIT_S)
+            check(not t.is_alive(), "a search during compaction did not "
+                  f"end within {CLUSTER_SEARCH_LIMIT_S} s of it")
+            if "error" in box:
+                raise box["error"]
+            every = walls["returned"] + walls["refused"]
+            refused = len(walls["refused"]) / max(1, len(every) - 2)
+            check(refused <= CLUSTER_REFUSED_SHARE,
+                  f"{len(walls['refused'])} of {len(every) - 2} searches "
+                  "during compaction were refused StaleGeneration, more "
+                  f"than {CLUSTER_REFUSED_SHARE:.0%}")
+            during_compaction.update(
+                searches=len(every) - 2, returned=len(walls["returned"]) - 2,
+                refused_stale=len(walls["refused"]),
+                refused_bound=CLUSTER_REFUSED_SHARE, max_s=max(every),
+                p50_ms=percentile_ms(every, 50),
+                stale_retries=bg.stats["stale_retries"],
+                resyncs=bg.stats["resyncs"])
+            return gen
+
         # two compactions, mutations before each and after the last: the
-        # second one drops generation 1 from every scorer
+        # second one drops generation 1 from every scorer; a second router
+        # searches all through the first
         compact_s = []
+        during_compaction = {}
         deleted = set(doomed.tolist())
-        compact(2)
+        compact(2, searched=True)
         mutate(13)
         readings = {"bootstrap": boot, "compacted_once": node_stats(cluster)}
         compact(3)
@@ -3261,7 +3378,9 @@ def run_cluster(torch, ds, params):
                       "ack_p50_ms": percentile_ms(ack_s, 50),
                       "ack_p99_ms": percentile_ms(ack_s, 99)},
              deletes=CLUSTER_DELETES, delta_slots_at_compaction=delta_slots,
-             compact_s=compact_s, failover_s=failover_s, term=term,
+             compact_s=compact_s,
+             searches_during_compaction=during_compaction,
+             failover_s=failover_s, term=term,
              parity_checks=parity_checks, recall_at_20=recall, memory=mem,
              scorer_slice_bytes=slice_bytes,
              scorer_search_transient_bytes=transient,
@@ -3289,99 +3408,135 @@ def run_cluster(torch, ds, params):
 
 # ---------------------------------------------------------------------------
 # launch: python -m repro_torch.launch.serve --retrieval, plain / durable /
-# restored, --role router and --arch (qwen2-7b-smoke and qwen2-7b, the PQ
-# head; recurrentgemma-9b-smoke with it, mamba2-780m-smoke without), as
-# processes of their own on the card
+# restored, --role router and --arch (qwen2-7b-smoke, qwen2-7b and
+# qwen2-moe-a2.7b, the PQ head; recurrentgemma-9b-smoke with it,
+# mamba2-780m-smoke without), launch.train, launch.dryrun and
+# roofline.report, as processes of their own on the card
 # ---------------------------------------------------------------------------
 
+LAUNCH_PARALLEL = 5       # the children that share the card at once
+
+
 def run_launch():
+    """The launchers as processes of their own on the card: the retrieval
+    modes, the router, the smoke LMs, the training smoke, qwen2-7b at full
+    width (a 40 GB peak) and the dry run of stablelm-1.6b (on ``meta``)
+    ``LAUNCH_PARALLEL`` at a time, a durable store's restore after its
+    bootstrap; then, one at a time with the card to themselves,
+    qwen2-moe-a2.7b at full width and depth (its f32 tree handed over to
+    the session, a 64 GB peak), the dry run of the 2^26-row shard and the
+    roofline report on both dry runs' rows.  Fails unless each exits 0
+    and prints what its mode promises; the full-width LMs' peak device
+    memory must stay under 70 GB."""
     import shutil
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="launch-")
     env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")}
     out = {}
+    store = os.path.join(tmp, "store")
+    rows, lm_rows = (os.path.join(tmp, f) for f in ("dryrun.jsonl",
+                                                     "dryrun_lm.jsonl"))
+    serve, train = "repro_torch.launch.serve", "repro_torch.launch.train"
+    dryrun = "repro_torch.launch.dryrun"
+    report = "repro_torch.roofline.report"
+
+    def child(name, module, extra):
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", module, *extra],
+            capture_output=True, text=True, timeout=300, env=env,
+            cwd=REPO)
+        check(r.returncode == 0, f"{module} {name} exited "
+              f"{r.returncode}: {r.stderr[-2000:]}")
+        lines = [ln for ln in r.stdout.splitlines()
+                 if not ln.startswith("stats")]
+        res = {"seconds": time.perf_counter() - t0,
+               "stdout": [ln[:160] for ln in lines]}
+        if name == "router":
+            status = [ln for ln in lines
+                      if ln.startswith("router status:")]
+            check(len(status) == 1 and "'degraded': 0" in status[0],
+                  f"launch.serve --role router status: {status}")
+            res["status"] = status[0]
+        if name.startswith("lm_"):
+            gen = [ln for ln in lines if ln.startswith("generated (")]
+            head = "pq-hybrid" if "--pq-head" in extra else "exact"
+            check(len(gen) == 1 and f"head={head}" in gen[0],
+                  f"launch.serve {' '.join(extra)}: {lines}")
+            peak = [int(ln.split()[1]) for ln in lines
+                    if ln.startswith("max_memory_allocated: ")]
+            check(len(peak) == 1 and peak[0] < 70e9,
+                  f"launch.serve {' '.join(extra)}: peak {peak}")
+            res["max_memory_allocated"] = peak[0]
+        if module == train:
+            done = [ln for ln in lines if ln.startswith("done: loss ")]
+            check(len(done) == 1 and " -> " in done[0],
+                  f"launch.train {' '.join(extra)}: {lines}")
+        if module == dryrun:
+            check(lines[-1].endswith(" ok, 0 skip, 0 fail"),
+                  f"launch.dryrun {' '.join(extra)}: {lines[-3:]}")
+        if name == "dryrun_retrieval":
+            with open(rows) as fh:
+                row = json.loads(fh.readline())
+            check(row["query_blocks"]["blocks"] == 4,
+                  f"launch.dryrun --retrieval: {row['query_blocks']}")
+            res["query_blocks"] = row["query_blocks"]
+            res["calls"] = {
+                form: {call: {k: f[call][k] for k in (
+                    "ms", "ms_runs", "rows_per_s", "launches",
+                    "max_memory_allocated")}
+                    for call in ("pass1", "three_pass")}
+                for form, f in row["forms"].items()}
+        if module == report:
+            table = [ln for ln in lines if ln.startswith("|")]
+            check(len(table) == 4
+                  and "| hybrid-retrieval-1b | search_q128 |" in table[2]
+                  and "| stablelm-1.6b | train_4k |" in table[3],
+                  f"roofline.report: {lines}")
+            res["table"] = table
+        return name, res
+
+    # chains of children: a chain runs in order, chains run at once
+    small = [
+        [("plain", serve, ["--retrieval"])],
+        [("persist", serve, ["--retrieval", "--persist-dir", store]),
+         ("restore", serve, ["--retrieval", "--restore", store])],
+        [("router", serve, ["--role", "router"])],
+        [("lm_smoke", serve, ["--arch", "qwen2-7b-smoke", "--pq-head"])],
+        [("lm_recurrentgemma_smoke", serve,
+          ["--arch", "recurrentgemma-9b-smoke", "--pq-head"])],
+        [("lm_mamba2_smoke", serve, ["--arch", "mamba2-780m-smoke"])],
+        [("train_smoke", train,
+          ["--arch", "stablelm-1.6b-smoke", "--steps", "4", "--device",
+           "cuda", "--ckpt", os.path.join(tmp, "train")])],
+        [("lm_qwen2_7b", serve, ["--arch", "qwen2-7b", "--pq-head",
+                                 "--tokens", "8"])],
+        [("dryrun_stablelm", dryrun, ["--arch", "stablelm-1.6b", "--shape",
+                                      "train_4k", "--out", lm_rows])]]
+    large = [
+        ("lm_qwen2_moe", serve, ["--arch", "qwen2-moe-a2.7b", "--pq-head",
+                                 "--tokens", "8"]),
+        # 4 blocks of 32 queries, beside the dryrun phase's fewest
+        ("dryrun_retrieval", dryrun, ["--retrieval", "--query-blocks", "4",
+                                      "--out", rows])]
     try:
-        store = os.path.join(tmp, "store")
-        rows = os.path.join(tmp, "dryrun.jsonl")
-        serve, train = "repro_torch.launch.serve", "repro_torch.launch.train"
-        dryrun = "repro_torch.launch.dryrun"
-        report = "repro_torch.roofline.report"
-        for name, module, extra in (
-                ("plain", serve, ["--retrieval"]),
-                ("persist", serve, ["--retrieval", "--persist-dir", store]),
-                ("restore", serve, ["--retrieval", "--restore", store]),
-                ("router", serve, ["--role", "router"]),
-                ("lm_smoke", serve, ["--arch", "qwen2-7b-smoke",
-                                     "--pq-head"]),
-                ("lm_qwen2_7b", serve, ["--arch", "qwen2-7b", "--pq-head",
-                                        "--tokens", "8"]),
-                ("lm_recurrentgemma_smoke", serve,
-                 ["--arch", "recurrentgemma-9b-smoke", "--pq-head"]),
-                ("lm_mamba2_smoke", serve, ["--arch", "mamba2-780m-smoke"]),
-                ("train_smoke", train,
-                 ["--arch", "stablelm-1.6b-smoke", "--steps", "4",
-                  "--device", "cuda", "--ckpt",
-                  os.path.join(tmp, "train")]),
-                # 4 blocks of 32 queries, beside the dryrun phase's fewest
-                ("dryrun_retrieval", dryrun, ["--retrieval", "--query-blocks",
-                                              "4", "--out", rows]),
-                ("dryrun_stablelm", dryrun,
-                 ["--arch", "stablelm-1.6b", "--shape", "train_4k",
-                  "--out", rows]),
-                ("roofline_report", report, [rows])):
-            t0 = time.perf_counter()
-            r = subprocess.run(
-                [sys.executable, "-m", module, *extra],
-                capture_output=True, text=True, timeout=300, env=env,
-                cwd=REPO)
-            check(r.returncode == 0, f"{module} {name} exited "
-                  f"{r.returncode}: {r.stderr[-2000:]}")
-            lines = [ln for ln in r.stdout.splitlines()
-                     if not ln.startswith("stats")]
-            out[name] = {"seconds": time.perf_counter() - t0,
-                         "stdout": [ln[:160] for ln in lines]}
-            if name == "router":
-                status = [ln for ln in lines
-                          if ln.startswith("router status:")]
-                check(len(status) == 1 and "'degraded': 0" in status[0],
-                      f"launch.serve --role router status: {status}")
-                out[name]["status"] = status[0]
-            if name.startswith("lm_"):
-                gen = [ln for ln in lines if ln.startswith("generated (")]
-                head = "pq-hybrid" if "--pq-head" in extra else "exact"
-                check(len(gen) == 1 and f"head={head}" in gen[0],
-                      f"launch.serve {' '.join(extra)}: {lines}")
-            if module == train:
-                done = [ln for ln in lines if ln.startswith("done: loss ")]
-                check(len(done) == 1 and " -> " in done[0],
-                      f"launch.train {' '.join(extra)}: {lines}")
-            if module == dryrun:
-                check(lines[-1].endswith(" ok, 0 skip, 0 fail"),
-                      f"launch.dryrun {' '.join(extra)}: {lines[-3:]}")
-            if name == "dryrun_retrieval":
-                with open(rows) as fh:
-                    row = json.loads(fh.readline())
-                check(row["query_blocks"]["blocks"] == 4,
-                      f"launch.dryrun --retrieval: {row['query_blocks']}")
-                out[name]["query_blocks"] = row["query_blocks"]
-                out[name]["calls"] = {
-                    form: {call: {k: f[call][k] for k in (
-                        "ms", "ms_runs", "rows_per_s", "launches",
-                        "max_memory_allocated")}
-                        for call in ("pass1", "three_pass")}
-                    for form, f in row["forms"].items()}
-            if module == report:
-                table = [ln for ln in lines if ln.startswith("|")]
-                check(len(table) == 4
-                      and "| hybrid-retrieval-1b | search_q128 |" in table[2]
-                      and "| stablelm-1.6b | train_4k |" in table[3],
-                      f"roofline.report: {lines}")
-                out[name]["table"] = table
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(LAUNCH_PARALLEL) as pool:
+            done = [pool.submit(lambda c: [child(*job) for job in c], chain)
+                    for chain in small]
+            out.update(res for fut in done for res in fut.result())
+        small_s = time.perf_counter() - t0
+        out.update(child(*job) for job in large)
+        with open(rows, "a") as fh, open(lm_rows) as lm:
+            fh.write(lm.read())            # the report: the shard, then lm
+        out.update([child("roofline_report", report, [rows])])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    emit("launch", runs=out, seconds=time.perf_counter() - t_phase)
+    emit("launch", runs=out, parallel=LAUNCH_PARALLEL,
+         shared_children_s=small_s, seconds=time.perf_counter() - t_phase)
 
 
 # ---------------------------------------------------------------------------
@@ -3682,23 +3837,58 @@ def model_batch(torch, cfg, g, b, s) -> dict:
     return batch
 
 
-def decode_vs_forward(torch, model, params, g, b=2, s=32) -> float:
+@contextlib.contextmanager
+def moe_routes():
+    """While open, every MoE layer call also routes its input through
+    ``moe_route`` and appends (its tokens' top-k expert ids, sorted,
+    (B, S, k); whether each assignment is within capacity, (B, S k)) to
+    the yielded list."""
+    from repro_torch.models import mlp as mlp_mod
+    routes, moe = [], mlp_mod.moe
+
+    def recording(x, p, cfg):
+        _, _, ids, _, in_cap, _ = mlp_mod.moe_route(x, p, cfg)
+        routes.append((ids.reshape(x.shape[0], x.shape[1], -1).sort(-1)
+                       .values, in_cap))
+        return moe(x, p, cfg)
+
+    mlp_mod.moe = recording
+    try:
+        yield routes
+    finally:
+        mlp_mod.moe = moe
+
+
+def decode_vs_forward(torch, model, params, g, b=2, s=32,
+                      flips: list | None = None) -> float:
     """prefill(S - 1) + decode(1) against the teacher-forced forward's last
     position, on random inputs: the max relative error, as the reference's
-    test_decode_matches_forward reads it."""
+    test_decode_matches_forward reads it.  ``flips`` (MoE models) receives,
+    a MoE layer each, the prompt tokens (of B (S - 1)) whose top-k experts
+    differ between the forward and the prefill, and the last tokens (of B)
+    whose top-k differ between the forward and the decode step: where the
+    two routes part."""
     batch = model_batch(torch, model.cfg, g, b, s)
-    full, _ = model.forward(params, batch)
-    want = full[:, -1].float()
-    del full
-    key = "tokens" if "tokens" in batch else "embeds"
-    pre = {**batch, key: batch[key][:, :s - 1]}
-    _, state = model.prefill(params, pre, 64)
-    last = (batch[key][:, s - 1] if key == "tokens"
-            else batch[key][:, s - 1:s])
-    got, _ = model.decode_step(params, state, last)
+    with moe_routes() as routes:
+        full, _ = model.forward(params, batch)
+        want = full[:, -1].float()
+        del full
+        key = "tokens" if "tokens" in batch else "embeds"
+        pre = {**batch, key: batch[key][:, :s - 1]}
+        n = len(routes)
+        _, state = model.prefill(params, pre, 64)
+        last = (batch[key][:, s - 1] if key == "tokens"
+                else batch[key][:, s - 1:s])
+        got, _ = model.decode_step(params, state, last)
     check(got.shape == want.shape and bool(torch.isfinite(got).all()),
           f"{model.cfg.name}: decode logits {tuple(got.shape)} are not "
           f"finite {tuple(want.shape)}")
+    if flips is not None:
+        ids = [r[0] for r in routes]
+        fwd, prompt, step = ids[:n], ids[n:2 * n], ids[2 * n:]
+        flips += [{"prompt": int((f[:, :s - 1] != p).any(-1).sum()),
+                   "last": int((f[:, s - 1:] != d).any(-1).sum())}
+                  for f, p, d in zip(fwd, prompt, step)]
     return float((got.float() - want).abs().max() / want.abs().max())
 
 
@@ -3809,54 +3999,50 @@ def lockstep_decode(torch, ops, routes: dict, prompt) -> dict:
             for name, loop in loops.items()}
 
 
-def moe_drop_share(torch, sess, prompt) -> dict:
-    """The (token, expert) assignments that a prefill of ``prompt`` drops
-    at the config's own capacity_factor, over every MoE layer: each MoE
-    call of that prefill also routes its input through ``moe_route`` and
-    counts the assignments past capacity."""
-    from repro_torch.models import mlp as mlp_mod
-    kept, total = [], 0
-    moe = mlp_mod.moe
-
-    def counting(x, p, cfg):
-        nonlocal total
-        in_cap = mlp_mod.moe_route(x, p, cfg)[4]
-        kept.append(in_cap.sum())
-        total += in_cap.numel()
-        return moe(x, p, cfg)
-
-    mlp_mod.moe = counting
-    try:
+def moe_drop_share(torch, sess) -> dict:
+    """The (token, expert) assignments that a prefill of 32 seeded prompts
+    of 16 tokens drops at the config's own capacity_factor, over every MoE
+    layer (``moe_routes``)."""
+    cfg = sess.model.cfg
+    g = torch.Generator(device="cuda").manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size,
+                           (max(DECODE_BATCHES), DECODE_PROMPT),
+                           generator=g, device="cuda")
+    with moe_routes() as routes:
         sess.prefill({"tokens": prompt})
-    finally:
-        mlp_mod.moe = moe
-    dropped = total - int(torch.stack(kept).sum())
+    total = sum(cap.numel() for _, cap in routes)
+    dropped = total - sum(int(cap.sum()) for _, cap in routes)
     return {"assignments": total, "dropped": dropped,
-            "dropped_share": dropped / total, "moe_layers": len(kept),
+            "dropped_share": dropped / total, "moe_layers": len(routes),
             "capacity_factor": sess.model.cfg.capacity_factor}
 
 
 def decode_cell(torch, cfg, *, pq: bool, check_cfg=None) -> tuple:
     """One model's decode loop at ``cfg``'s width and depth, random weights
     from ``Model.init`` with a seeded ``torch.Generator`` on the card, in
-    the config's bf16 from ``ServeSession.create`` on: ``greedy_generate``
-    on the f32 params at B = 1 and 32 with the exact head and, with ``pq``,
-    the PQ head (``cuda``: K1 at K = d / 2 a step); then one session (its
-    PQ head built once, as ``greedy_generate`` builds it) after which the
-    f32 tree goes, and the exact route on its bf16 layers.  Fails unless
-    decode equals forward within the reference's rel 3e-2, and within
-    1e-4 on the f32 tree in f32 (on ``check_cfg``'s model when given: MoE
-    at a raised capacity_factor),
-    every PQ step launches K1 exactly once and the exact route never, the
+    the config's bf16 from ``ServeSession.create`` on.  Each session is
+    reached without holding two trees: the seeded f32 tree is handed over
+    (``donate=True``) and cast in place.  First decode against forward on
+    the f32 tree in f32 (on ``check_cfg``'s model when given: MoE at a
+    raised capacity_factor), within 1e-4; then the main path, as a user
+    calls it: ``greedy_generate(donate=True)`` at B = 1 and 32 with the
+    exact head and, with ``pq``, the PQ head (``cuda``: K1 at K = d / 2 a
+    step), each on the seeded tree drawn anew; then one session (its PQ
+    head built once, as ``greedy_generate`` builds it) from the tree drawn
+    once more, and the exact route on its bf16 layers.  Fails unless
+    decode equals forward within the reference's rel 3e-2 in bf16 (the
+    failure names, for a MoE model, the route flips below), every PQ step launches K1 exactly once and the exact route never, the
     spelled-out timed loop (``lockstep_decode``) gives ``greedy_generate``'s
     tokens, and one step of each route runs under
     ``set_sync_debug_mode("error")``.  Reports, at B = 1 and 32, ms a step
     (median of CUDA-event readings, host work included, the routes in
     lockstep), tokens/s, the head's ms inside a step, launches and device
     time a step (torch.profiler), the distinct tokens of each route, the
-    exact head's top-1 margins, PQ-vs-exact token agreement and K1 at the
-    head's shapes (``head_k1_reading``).  Returns (the cell's fields, K1's
-    launches on the main path, the session)."""
+    exact head's top-1 margins, PQ-vs-exact agreement, K1 at the head's
+    shapes (``head_k1_reading``) and, for a MoE model, the tokens whose
+    top-k experts differ between decode and forward, layer by layer, in
+    bf16.  Returns (the cell's fields, K1's launches on the main path, the
+    session)."""
     from repro_torch.core.pq import adc_lut
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.ref import PLAIN_CALLS
@@ -3866,6 +4052,14 @@ def decode_cell(torch, cfg, *, pq: bool, check_cfg=None) -> tuple:
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     model = Model(cfg)
+
+    def seeded_tree():
+        """The f32 tree of seed 0, drawn anew on the card."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        return model.init(torch.Generator(device="cuda").manual_seed(0),
+                          device="cuda")
+
     g = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     params = model.init(g, device="cuda")
@@ -3878,15 +4072,26 @@ def decode_cell(torch, cfg, *, pq: bool, check_cfg=None) -> tuple:
     route_list = (("exact", False), ("pq", True)) if pq else (
         ("exact", False),)
 
+    # decode against forward on the f32 tree in f32, before any cast: what
+    # the bf16 check below leaves to rounding
+    f32_cfg = dataclasses.replace(check_cfg or cfg, dtype="float32")
+    rel_f32 = decode_vs_forward(torch, Model(f32_cfg), params, g)
+    check(rel_f32 < DECODE_REL_F32,
+          f"{cfg.name} (f32): decode vs forward rel {rel_f32}")
+
     # the main path, as a user calls it: greedy_generate on the f32 tree,
-    # every count at zero just before each call
+    # handed over, every count at zero just before each call
     launches, tokens = 0, {}
     for b in DECODE_BATCHES:
         for route, use_pq in route_list:
+            if params is None:
+                params = seeded_tree()
             ops.reset_counts()
             toks = greedy_generate(model, params, prompts[b], DECODE_TOKENS,
-                                   DECODE_MAX_LEN, use_pq_head=use_pq)
+                                   DECODE_MAX_LEN, use_pq_head=use_pq,
+                                   donate=True)
             torch.cuda.synchronize()
+            params = None            # the session's tree: it goes here
             got = dict(ops.LAUNCHES)
             want_k1 = DECODE_TOKENS if use_pq else 0
             check(all(got[n] == want_k1 for n in PQ_STEP_KERNELS)
@@ -3902,27 +4107,24 @@ def decode_cell(torch, cfg, *, pq: bool, check_cfg=None) -> tuple:
                   f"{tuple(toks.shape)} outside the vocabulary")
             tokens[b, route] = toks
 
-    # decode against forward on the f32 tree in f32: what the bf16 check
-    # below leaves to rounding
-    f32_cfg = dataclasses.replace(check_cfg or cfg, dtype="float32")
-    rel_f32 = decode_vs_forward(torch, Model(f32_cfg), params, g)
-    check(rel_f32 < DECODE_REL_F32,
-          f"{cfg.name} (f32): decode vs forward rel {rel_f32}")
-
-    # the timed loop's session: one build of the PQ head, and the exact
-    # route on its bf16 layers; then the f32 tree goes
+    # the timed loop's session: one build of the PQ head from the f32
+    # lm_head, then the tree cast in place; the exact route on its layers
+    params = seeded_tree()
     t0 = time.perf_counter()
     sess = ServeSession.create(model, params, DECODE_MAX_LEN,
                                use_pq_head=pq,
-                               head_backend="cuda" if pq else None)
+                               head_backend="cuda" if pq else None,
+                               donate=True)
     torch.cuda.synchronize()
     create_s = time.perf_counter() - t0
     del params
-    gc.collect()
-    torch.cuda.empty_cache()
     exact_sess = dataclasses.replace(sess, pq_head=None, pq_params=None)
-    rel = decode_vs_forward(torch, Model(check_cfg or cfg), sess.params, g)
-    check(rel < DECODE_REL, f"{cfg.name}: decode vs forward rel {rel}")
+    flips = [] if cfg.family == "moe" else None
+    rel = decode_vs_forward(torch, Model(check_cfg or cfg), sess.params, g,
+                            flips=flips)
+    check(rel < DECODE_REL, f"{cfg.name}: decode vs forward rel {rel} >= "
+          f"{DECODE_REL}" + (f"; route flips by layer {flips}" if flips
+                             else ""))
 
     by_b = {}
     for b in DECODE_BATCHES:
@@ -3987,11 +4189,14 @@ def decode_cell(torch, cfg, *, pq: bool, check_cfg=None) -> tuple:
               "vocab": cfg.vocab_size, "dtype": cfg.dtype,
               "decode_rel": rel, "decode_bound": DECODE_REL,
               "decode_rel_f32": rel_f32,
-              "decode_f32_bound": DECODE_REL_F32, "init_s": init_s, "params_f32_bytes": params_bytes,
+              "decode_f32_bound": DECODE_REL_F32, "init_s": init_s,
+              "params_f32_bytes": params_bytes,
               "session_create_s": create_s,
               "session_device_bytes": tensor_bytes(sess.params)
               + (tensor_bytes(sess.pq_params) if pq else 0),
               "by_batch": by_b}
+    if flips is not None:
+        fields["route_flips_bf16"] = flips
     if pq:
         fields["head_build_s"] = sum(sess.pq_params.build_seconds.values())
         fields["head_build_stage_s"] = sess.pq_params.build_seconds
@@ -4024,10 +4229,10 @@ def run_lm_decode(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# lm_families: the other families of the LM zoo; recurrentgemma-9b at full
-# width and depth through the exact and the PQ head (K1 at V = 256000,
-# K = 2048 a step), mamba2-780m at full size and qwen2-moe-a2.7b at full
-# width (8 of 24 layers) through the exact head
+# lm_families: the other families of the LM zoo; recurrentgemma-9b and
+# qwen2-moe-a2.7b at full width and depth through the exact and the PQ head
+# (K1 at V = 256000, K = 2048 and at V = 151936, K = 1024 a step), and
+# mamba2-780m at full size through the exact head
 # ---------------------------------------------------------------------------
 
 FAMILY_SMOKES = ("qwen2-moe-a2.7b-smoke", "qwen3-moe-235b-a22b-smoke",
@@ -4035,64 +4240,54 @@ FAMILY_SMOKES = ("qwen2-moe-a2.7b-smoke", "qwen3-moe-235b-a22b-smoke",
                  "llama-3.2-vision-90b-smoke", "musicgen-medium-smoke")
 FAMILY_ARCH = "recurrentgemma-9b"      # 12 x (rglru, rglru, lattn) + 2
 SSM_ARCH = "mamba2-780m"               # 48 ssd layers
-MOE_ARCH, MOE_LAYERS = "qwen2-moe-a2.7b", 8   # all 24 need 86 GB
+MOE_ARCH = "qwen2-moe-a2.7b"           # 24 moe layers, 60 experts top-4
+FAMILY_PEAK_BOUND = 70e9
 
 
 def run_lm_families(torch) -> dict:
     """The other families through ``decode_cell``: recurrentgemma-9b at full
     width and depth (RG-LRU, the local-attention ring at W = max_len 128,
-    MQA at head_dim 256, GeGLU; V 256000) with the exact and the PQ head;
-    mamba2-780m at full width and depth and qwen2-moe-a2.7b at full width
-    cut to 8 of its 24 layers (decode held to forward at capacity_factor
-    16; the prompt's prefill read for dropped assignments at its own 1.25)
-    with the exact head; decode against forward within 1e-4 on the six
-    smoke configs of these families in f32 (``cond`` and ``embeds`` seeded
-    where the config takes them).  Fails unless ``max_memory_allocated``
-    stays under 70 GB in recurrentgemma-9b's cell.  Returns K1's launches on
-    the main path."""
+    MQA at head_dim 256, GeGLU; V 256000) and qwen2-moe-a2.7b at full width
+    and depth (24 layers of 60 routed experts top-4 and 4 shared; V 151936;
+    decode held to forward at capacity_factor 16, with the layers where
+    the two routes send a token to other experts; the prompt's prefill
+    read for dropped assignments at its own 1.25), each with the exact and
+    the PQ head; mamba2-780m at full width and depth with the exact head;
+    decode against forward within 1e-4 on the six smoke configs of these
+    families in f32 (``cond`` and ``embeds`` seeded where the config takes
+    them).  Fails unless each cell's ``max_memory_allocated`` stays under
+    70 GB.  Returns K1's launches on the main path."""
     from repro_torch.configs import get_config
 
     t_phase = time.perf_counter()
     smokes = smoke_decode_rels(torch, FAMILY_SMOKES)
     cells = {}
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    fields, launches, sess = decode_cell(torch, get_config(FAMILY_ARCH),
-                                         pq=True)
-    peak = torch.cuda.max_memory_allocated()
-    check(peak < 70e9, f"lm_families {FAMILY_ARCH} max_memory_allocated "
-          f"{peak} >= 70 GB")
-    cells[FAMILY_ARCH] = {**fields, "max_memory_allocated": peak,
-                          "seconds": time.perf_counter() - t0}
-    del sess
-    moe_cfg = dataclasses.replace(get_config(MOE_ARCH),
-                                  num_layers=MOE_LAYERS)
-    for cfg, check_cfg in (
-            (get_config(SSM_ARCH), None),
-            (moe_cfg, dataclasses.replace(moe_cfg, capacity_factor=16.0))):
+    launches = 0
+    for cfg, pq in ((get_config(FAMILY_ARCH), True),
+                    (get_config(SSM_ARCH), False),
+                    (get_config(MOE_ARCH), True)):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        fields, _, sess = decode_cell(torch, cfg, pq=False,
-                                      check_cfg=check_cfg)
+        check_cfg = (dataclasses.replace(cfg, capacity_factor=16.0)
+                     if cfg.family == "moe" else None)
+        fields, k1, sess = decode_cell(torch, cfg, pq=pq,
+                                       check_cfg=check_cfg)
+        launches += k1
         if cfg.family == "moe":
-            g = torch.Generator(device="cuda").manual_seed(1)
-            prompt = torch.randint(0, cfg.vocab_size,
-                                   (max(DECODE_BATCHES), DECODE_PROMPT),
-                                   generator=g, device="cuda")
-            fields["prefill_drops"] = moe_drop_share(torch, sess, prompt)
-            fields["cut"] = f"{MOE_LAYERS} of 24 layers"
-        cells[cfg.name] = {**fields,
-                           "max_memory_allocated":
-                           torch.cuda.max_memory_allocated(),
+            fields["prefill_drops"] = moe_drop_share(torch, sess)
+            fields["cut"] = None
+        peak = torch.cuda.max_memory_allocated()
+        check(peak < FAMILY_PEAK_BOUND, f"lm_families {cfg.name} "
+              f"max_memory_allocated {peak} >= 70 GB")
+        cells[cfg.name] = {**fields, "max_memory_allocated": peak,
                            "seconds": time.perf_counter() - t0}
         del sess
     emit("lm_families", cells=cells, prompt=DECODE_PROMPT,
          new_tokens=DECODE_TOKENS, max_len=DECODE_MAX_LEN,
          smoke_f32_decode_rel=smokes, smoke_f32_decode_bound=DECODE_REL_F32,
+         peak_bound=FAMILY_PEAK_BOUND,
          seconds=time.perf_counter() - t_phase)
     return {"launches": launches}
 
@@ -4750,10 +4945,14 @@ def main() -> int:
     durable = run_durable(torch, ds, params)
     gc.collect()
     torch.cuda.empty_cache()
-    cluster = run_cluster(torch, ds, params)
-    gc.collect()
-    torch.cuda.empty_cache()
-    tables = run_tables(args, torch, ds)
+    # the tables' Netflix- and Movielens-shaped data is made on the host
+    # while the cluster phase waits on its nodes' store fetches and reloads
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        table2 = pool.submit(table2_datasets, args)
+        cluster = run_cluster(torch, ds, params)
+        gc.collect()
+        torch.cuda.empty_cache()
+        tables = run_tables(args, torch, ds, table2)
     del ds
     gc.collect()
     torch.cuda.empty_cache()

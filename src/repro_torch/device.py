@@ -1,6 +1,7 @@
 """The one device rule of the port's entry points, the one way host code
-reads a tensor or an array as numpy, and the f32 rule of the products that
-stand for the JAX package's f32 matmuls."""
+reads a tensor or an array as numpy, the f32 rule of the products that
+stand for the JAX package's f32 matmuls, and the f32 rule of the sums of
+the models' bf16 products."""
 
 from __future__ import annotations
 
@@ -9,7 +10,7 @@ import contextlib
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "to_numpy", "full_f32"]
+__all__ = ["resolve_device", "to_numpy", "full_f32", "f32_reductions"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -41,3 +42,21 @@ def full_f32():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@contextlib.contextmanager
+def f32_reductions():
+    """The sums of bf16 products stay f32, as XLA keeps them in the JAX
+    package: cuBLAS's reduced-precision (bf16) split-K reductions off for
+    the duration, whatever the caller set.  PyTorch allows them by default;
+    with them a decode step's products at M = B were summed otherwise than
+    the forward's, and at qwen2-moe-a2.7b's 24 layers the two routes sent
+    the last token to other experts from layer 7 on (ROADMAP C9).  Usable
+    as a decorator."""
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = saved

@@ -53,10 +53,13 @@ import time
 import numpy as np
 
 
-def run_lm(args) -> None:
-    """Decode-loop latency probe (exact vs PQ hybrid head) on ``--device``:
-    the wall time of ``greedy_generate``, the PQ head's build included, as
-    the reference reports it."""
+def lm_generate(args):
+    """The LM mode's greedy tokens: ``--seed``'s f32 tree and prompts drawn
+    on ``--device``, the tree handed over to the session, which casts it in
+    place (``greedy_generate(donate=True)``), so that a model whose f32 and
+    bf16 trees do not fit the card together still serves (qwen2-moe-a2.7b:
+    57.3 GB f32, 28.7 GB bf16).  Returns (tokens (B, T) on the CPU, the
+    seconds of ``greedy_generate``, the device)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -75,13 +78,26 @@ def run_lm(args) -> None:
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     out = greedy_generate(model, params, prompt, args.tokens, args.max_len,
-                          use_pq_head=args.pq_head,
-                          penalty=args.penalty).cpu()
-    dt = time.perf_counter() - t0
+                          use_pq_head=args.pq_head, penalty=args.penalty,
+                          donate=True).cpu()
+    return out, time.perf_counter() - t0, dev
+
+
+def run_lm(args) -> None:
+    """Decode-loop latency probe (exact vs PQ hybrid head) on ``--device``:
+    the wall time of ``greedy_generate``, the PQ head's build included, as
+    the reference reports it (``lm_generate``); on the card, the run's peak
+    device memory too."""
+    import torch
+
+    out, dt, dev = lm_generate(args)
     print(f"generated {tuple(out.shape)} in {dt:.2f}s "
           f"({dt / args.tokens * 1e3:.1f} ms/step, "
           f"head={'pq-hybrid' if args.pq_head else 'exact'})")
     print("sample:", out[0, :16].tolist())
+    if dev.type == "cuda":
+        print(f"max_memory_allocated: "
+              f"{torch.cuda.max_memory_allocated(dev)} B")
 
 
 def _maybe_metrics_server(args, registry):

@@ -29,7 +29,11 @@ number.  ``unroll`` changes no number and is ignored.  ``loss`` is the mean
 token cross-entropy in sequence chunks, the (B, S, V) f32 logits never
 whole.  A decode state's ``index`` is a host int, so a step reads nothing
 back from the device; ``decode_step`` writes the new K/V (and a local
-layer's slot position) into the state's caches in place.
+layer's slot position) into the state's caches in place.  On the card the
+sums of bf16 products stay f32 in ``forward``, ``loss``, ``prefill`` and
+``decode_step`` (``device.f32_reductions``), as XLA keeps them: with
+PyTorch's default reduced-precision split-K sums, decode and forward sent
+qwen2-moe-a2.7b's last token to other experts from layer 7 on.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..device import resolve_device
+from ..device import f32_reductions, resolve_device
 from . import attention as attn
 from . import mlp as mlp_mod
 from . import rglru as rglru_mod
@@ -381,6 +385,7 @@ class Model:
         return apply_norm(x, params["final_norm"], cfg.norm), aux, states
 
     # -- forward (teacher-forced) ----------------------------------------------
+    @f32_reductions()
     def forward(self, params, batch, return_hidden: bool = False):
         """Returns (logits (B, S, V), aux) in the compute dtype; with
         return_hidden, (hidden (B, S, D) after the final norm, aux).  aux is
@@ -390,6 +395,7 @@ class Model:
             return x, aux
         return self._head(params, x), aux
 
+    @f32_reductions()
     def loss(self, params, batch):
         """Mean token cross-entropy (+ MoE aux): (nll + zloss + aux, {"nll",
         "aux", "zloss"}), 0-d f32 tensors.  ``batch["labels"]`` (B, S) holds
@@ -427,6 +433,7 @@ class Model:
         return nll + zloss + aux, {"nll": nll, "aux": aux, "zloss": zloss}
 
     # -- prefill ---------------------------------------------------------------
+    @f32_reductions()
     def prefill(self, params, batch, max_len: int):
         """Teacher-forced forward that also builds the decode state.
 
@@ -455,6 +462,7 @@ class Model:
                     st["ck"], st["cv"] = attn.cond_kv(cond, p["xattn"], cfg)
         return {**self._restack(entries), "index": 0}
 
+    @f32_reductions()
     def decode_step(self, params, state, token_or_embed,
                     return_hidden: bool = False):
         """One token for the whole batch.  token_or_embed: (B,) int tokens,

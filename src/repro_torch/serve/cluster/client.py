@@ -92,7 +92,9 @@ class PendingReply:
         """Block until the reply is in; returns raw ``(op, meta, arrays)``
         (``MSG_ERROR`` frames are returned, not raised — ``result`` is the
         raising form).  Raises the transport error that killed the
-        connection if one did."""
+        connection if one did.  The wait is bounded by the socket's own
+        timeout (the client's ``timeout``): a read that gets no bytes for
+        that long fails every request in flight on the connection."""
         while not self._event.is_set():
             # whoever gets the receive lock drains replies FIFO until its
             # own arrives; everyone else wakes on their event
@@ -130,8 +132,9 @@ class _CoalescedReply:
     overlapping coalesced requests keep independent numbers — the race
     the old shared ``last_*`` fields had (DESIGN.md §9.2)."""
 
-    def __init__(self, meta: dict, arrays: dict,
+    def __init__(self, client: "ShardClient", meta: dict, arrays: dict,
                  frame: bytes | None = None):
+        self.client = client
         self.meta = meta
         self.arrays = arrays
         self.frame = frame
@@ -149,8 +152,12 @@ class _CoalescedReply:
     def result(self) -> tuple[dict, dict]:
         """Block for this search's own ``(meta, arrays)``; per-sub remote
         failures raise ``RemoteError``, transport failures raise what the
-        connection raised."""
-        self._ready.wait()
+        connection raised, and an entry still queued after the client's
+        ``timeout`` raises ``TimeoutError`` (it is taken off the queue, so
+        it never ships).  An entry a flush has taken off the queue waits
+        on: the flush ships it within ``submit``'s own timeout."""
+        while not self._ready.wait(self.client.timeout):
+            self.client._unqueue(self)
         if self._exc is not None:
             raise self._exc
         try:
@@ -161,13 +168,13 @@ class _CoalescedReply:
             self._batch.on_complete()      # kick the next queued flush
         meta.pop("cmd", None)
         if op == MSG_ERROR:
-            raise RemoteError(f"shard {self._pending.client.addr} failed "
+            raise RemoteError(f"shard {self.client.addr} failed "
                               f"'search': {meta.get('error')}")
         if self.width == 1:
             return meta, arrays
         sub = meta["subs"][self.slot]
         if "error" in sub:
-            raise RemoteError(f"shard {self._pending.client.addr} failed "
+            raise RemoteError(f"shard {self.client.addr} failed "
                               f"'search': {sub['error']}")
         prefix = f"{self.slot}:"
         return sub, {k[len(prefix):]: v for k, v in arrays.items()
@@ -214,6 +221,7 @@ class ShardClient:
         self._co_lock = threading.Lock()
         self._co_queue: list[_CoalescedReply] = []
         self._co_inflight = False
+        self._co_batch: _CoalescedBatch | None = None
 
     @property
     def addr(self) -> str:
@@ -265,7 +273,8 @@ class ShardClient:
             op, meta, arrays = recv_msg(sock)
         except (OSError, ConnectionError) as e:
             with self._send_lock:
-                self._fail_all(e)
+                if self._sock is sock:     # not a socket already dropped
+                    self._fail_all(e)
             return
         p = self._pending.popleft()
         p._complete(op, meta, arrays)
@@ -331,7 +340,7 @@ class ShardClient:
         (the fan-out's serialize-once path); a coalesced flush rebuilds
         from meta/arrays.  Returns a handle whose ``result()`` yields
         this search's own ``(meta, arrays)``."""
-        e = _CoalescedReply(meta, arrays, frame)
+        e = _CoalescedReply(self, meta, arrays, frame)
         with self._co_lock:
             self._co_queue.append(e)
             if self._co_inflight:
@@ -341,6 +350,25 @@ class ShardClient:
             self._co_queue = []
         self._flush(batch)
         return e
+
+    def _unqueue(self, e: _CoalescedReply) -> None:
+        """``e`` waited the client's ``timeout`` behind a flush that never
+        completed: take it off the queue (so it never ships with no one to
+        collect it), fail it with ``TimeoutError``, and release the stuck
+        batch's slot so that later searches ship (its reply, when it comes,
+        still completes that batch's pending in FIFO order).  An entry no
+        longer queued is left as it is: a flush has taken it and is
+        shipping it."""
+        with self._co_lock:
+            if e not in self._co_queue:        # flushed, or being flushed
+                return
+            self._co_queue.remove(e)
+            e._exc = TimeoutError(f"shard {self.addr}: a coalesced search "
+                                  f"waited {self.timeout:g} s to ship")
+            e._ready.set()
+            stuck = self._co_batch
+        if stuck is not None:
+            stuck.on_complete()
 
     def _coalesce_next(self) -> None:
         """Release the in-flight slot and flush whatever coalesced behind
@@ -379,7 +407,7 @@ class ShardClient:
                 e._ready.set()
             self._coalesce_next()
             return
-        shared = _CoalescedBatch(self, batch)
+        shared = self._co_batch = _CoalescedBatch(self, batch)
         for i, e in enumerate(batch):
             e.slot, e.width = i, len(batch)
             e._pending = p
@@ -452,13 +480,13 @@ class ShardClient:
                         "corrupt follower store")
 
     def close(self) -> None:
-        """Close the socket (idempotent); the next call reconnects."""
+        """Close the socket (idempotent); the next call reconnects.  Every
+        request still in flight fails with ``ConnectionError``: its reply
+        is gone with the socket, and left queued it would take the next
+        connection's first reply."""
         with self._send_lock:
-            if self._sock is not None:
-                try:
-                    self._sock.close()
-                finally:
-                    self._sock = None
+            self._fail_all(ConnectionError(f"shard {self.addr}: client "
+                                           "closed"))
 
 
 class _RemoteEngineBase:

@@ -45,6 +45,7 @@ import dataclasses
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import wait as wait_futures
 
 import numpy as np
 
@@ -123,6 +124,18 @@ class _Auth:
     main_dead: set
     fully_deleted: set
     delta_live: int
+
+
+def _settle(entries) -> None:
+    """Collect and drop the replies of coalesced entries whose chunk is
+    failing, so each entry's batch completes exactly once and its client's
+    coalescer moves on; an entry collected already returns at once, and
+    the errors are the chunk's to raise, not these."""
+    for en in entries:
+        try:
+            en.result()
+        except Exception:
+            pass
 
 
 def _addr(spec: str) -> tuple[str, int]:
@@ -357,11 +370,11 @@ class ClusterRouter:
     def compact(self, retrain: bool | None = None) -> int:
         """Orchestrate a cluster compaction: pause replica shipping, fold
         delta + tombstones at the primary (cut as a durable checkpoint),
-        have every scorer/replica reload the new store, then atomically
-        flip the router's generation + seed the new epoch's cache from the
-        compact ack's tag.  Old-generation searches keep working mid-flip
-        (servers hold the last two generations).  Returns the new
-        generation number."""
+        have every scorer/replica reload the new store, then
+        atomically flip the router's generation + seed the new epoch's
+        cache from the compact ack's tag.  Old-generation searches keep
+        working mid-flip (servers hold the last two generations).  Returns
+        the new generation number."""
         for r in self.replicas:
             r.call("fault", {"mode": "pause_shipping"})
         meta, arrays = self.primary.call("compact", {"retrain": retrain},
@@ -767,8 +780,12 @@ class ClusterRouter:
                     for c, m, hs in zip(self.scorers, metas, hspans)]
             dfut = self._pool.submit(self.primary.call, "search",
                                      dmeta_req, q_arrays, span=dspan)
-            mains = [f.result() for f in futs]
-            dmeta, darr = dfut.result()
+            try:
+                mains = [f.result() for f in futs]
+                dmeta, darr = dfut.result()
+            except BaseException:
+                wait_futures([*futs, dfut])    # none outlives the chunk
+                raise
             for (rm, _), hs in zip(mains, hspans):
                 self._finish_hop(hs, rm)
             self._finish_hop(dspan, dmeta)
@@ -791,14 +808,23 @@ class ClusterRouter:
                                part="delta")
             dentry = self.primary.submit_search(dmeta_req, q_arrays)
             mains = []
-            for c, m, en, hs in zip(self.scorers, metas, entries,
-                                    hspans):
-                rm, ra = self._collect(c, en, "search", m, q_arrays,
-                                       span=hs)
-                mains.append((rm, ra))
-                self._finish_hop(hs, rm)
-            dmeta, darr = self._collect(self.primary, dentry, "search",
-                                        dmeta_req, q_arrays, span=dspan)
+            try:
+                for c, m, en, hs in zip(self.scorers, metas, entries,
+                                        hspans):
+                    rm, ra = self._collect(c, en, "search", m, q_arrays,
+                                           span=hs)
+                    mains.append((rm, ra))
+                    self._finish_hop(hs, rm)
+                dmeta, darr = self._collect(self.primary, dentry, "search",
+                                            dmeta_req, q_arrays,
+                                            span=dspan)
+            except BaseException:
+                # a shard's StaleGeneration (or any failure) cuts the
+                # collect loop: settle every entry first, or the clients
+                # whose entries went uncollected keep their coalescing
+                # slot forever and queue every later search behind it
+                _settle([*entries, dentry])
+                raise
             self._finish_hop(dspan, dmeta)
 
         # adopt / confirm the authoritative liveness state

@@ -10,7 +10,11 @@ The reference casts each layer matrix to the compute dtype at its point of
 use; casting once gives the same bits, so a session holds those leaves and
 the exact head in ``cfg.dtype`` from ``create`` on (``F32_LEAVES`` names the
 leaves it reads in f32, which stay f32).  The PQ head is built from the
-caller's f32 ``lm_head`` before the cast.
+caller's f32 ``lm_head`` before the cast.  A caller that hands its f32 tree
+over (``donate=True``) has it cast in place, each f32 leaf released as its
+copy takes its place, so that a session never holds two trees at once:
+qwen2-moe-a2.7b's 57.3 GB f32 tree and its 28.7 GB of bf16 layers do not
+fit one 80 GB card together.
 """
 
 from __future__ import annotations
@@ -41,28 +45,45 @@ F32_LEAVES = {
 }
 
 
-def _serving_params(params: dict, cfg) -> dict:
+def _serving_params(params: dict, cfg, *, donate: bool = False) -> dict:
     """``params`` with every layer's leaves of ``F32_LEAVES``' sub-dicts,
     bar the leaves listed there, and the exact head in the compute dtype
     (bf16 for ``"bfloat16"``), over every pattern position and the tail.
-    f32 configs get ``params`` back unchanged."""
+    f32 configs get ``params`` back unchanged.  The casts go into a new
+    tree of dicts and lists that shares the other leaves; with ``donate``,
+    into ``params`` itself, a leaf at a time: each f32 leaf goes as its
+    copy replaces it (unless the caller holds it elsewhere), so the peak
+    is the f32 tree and one leaf's copy."""
     dtype = compute_dtype(cfg)
     if dtype == torch.float32:
         return params
+    tree = params if donate else _tree_copy(params)
 
-    def cast(tree, keep=()):
-        if isinstance(tree, dict):
-            return {k: v if k in keep else cast(v) for k, v in tree.items()}
-        return tree.to(dtype)
+    def cast(sub, keep=()):
+        for k in list(sub):
+            if k in keep:
+                continue
+            if isinstance(sub[k], dict):
+                cast(sub[k])
+            else:
+                sub[k] = sub[k].to(dtype)
 
-    def layer(p):
-        return {k: cast(v, F32_LEAVES[k]) if k in F32_LEAVES else v
-                for k, v in p.items()}
+    for p in [*(p for block in tree["blocks"] for p in block),
+              *tree["tail"]]:
+        for k, sub in p.items():
+            if k in F32_LEAVES:
+                cast(sub, F32_LEAVES[k])
+    tree["lm_head"] = tree["lm_head"].to(dtype)
+    return tree
 
-    return {**params, "lm_head": params["lm_head"].to(dtype),
-            "blocks": [[layer(p) for p in block]
-                       for block in params["blocks"]],
-            "tail": [layer(p) for p in params["tail"]]}
+
+def _tree_copy(tree):
+    """A params tree's dicts and lists, new; its leaves, shared."""
+    if isinstance(tree, dict):
+        return {k: _tree_copy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_copy(v) for v in tree]
+    return tree
 
 
 @dataclasses.dataclass
@@ -83,12 +104,16 @@ class ServeSession:
     def create(cls, model: Model, params: dict, max_len: int,
                use_pq_head: bool | None = None, use_kernel: bool = False,
                head_backend: str | None = None,
-               head_buckets: tuple[int, ...] | None = None):
+               head_buckets: tuple[int, ...] | None = None,
+               donate: bool = False):
         """head_backend: the engine backend of the PQ head's pass-1 scan
         (``ref``, ``onehot``, ``cuda``, ``cuda-packed``, or the reference's
         names); None resolves to ``cuda`` (``HybridLMHead``).  The head is
         built on the params' device.  head_buckets: static decode-batch
-        buckets for the PQ head (None keeps the exact batch size)."""
+        buckets for the PQ head (None keeps the exact batch size).
+        donate: the caller hands ``params`` over; it becomes the session's
+        tree, cast in place after the PQ head is built from its f32
+        ``lm_head`` (``_serving_params``), with the bits of a copy."""
         cfg = model.cfg
         use_pq = cfg.pq_head if use_pq_head is None else use_pq_head
         head = hp = None
@@ -97,7 +122,8 @@ class ServeSession:
                                 backend=head_backend)
             hp = head.build(params["lm_head"],
                             device=params["lm_head"].device)
-        return cls(model=model, params=_serving_params(params, cfg),
+        return cls(model=model,
+                   params=_serving_params(params, cfg, donate=donate),
                    max_len=max_len, pq_head=head, pq_params=hp,
                    head_buckets=head_buckets)
 
@@ -127,16 +153,19 @@ class ServeSession:
 
 def greedy_generate(model: Model, params: dict, prompt_tokens, num_steps: int,
                     max_len: int, *, use_pq_head: bool = False,
-                    penalty: float = 0.0, cond=None):
+                    penalty: float = 0.0, cond=None, donate: bool = False):
     """Greedy decode ``num_steps`` tokens after a prompt.  Returns (B, T)
-    int32 ids on the params' device.
+    int32 ids on the params' device.  ``donate``: the caller hands
+    ``params`` over, and its session is cast from it in place
+    (``ServeSession.create``); the tokens are the same.
 
     With use_pq_head, the final hidden state feeds the paper's PQ + residual
     head instead of the full-vocab product; outputs agree except where the
     top-1 margin is below the PQ error.  ``cond`` (B, Tc, D): the
     conditioning embeddings of the vlm and audio families' cross-attention
     layers."""
-    sess = ServeSession.create(model, params, max_len, use_pq_head)
+    sess = ServeSession.create(model, params, max_len, use_pq_head,
+                               donate=donate)
     dev = sess.params["lm_head"].device
     prompt = torch.as_tensor(prompt_tokens, device=dev).long()
     b = prompt.shape[0]

@@ -40,7 +40,7 @@ import torch
 
 from ..checkpoint import CheckpointManager, latest_step, restore_checkpoint
 from ..data.pipeline import DataConfig, synthetic_batch
-from ..device import resolve_device
+from ..device import f32_reductions, resolve_device
 from ..models.layout import flatten, from_reference, unflatten
 from ..optim import AdamWConfig, adamw_init, adamw_update
 
@@ -87,7 +87,9 @@ class TrainStep:
     def _one(self, params, batch):
         leaves = flatten(params)
         alias = [p.detach().requires_grad_() for p in leaves]
-        with torch.enable_grad():
+        # the backward (and its recomputed forwards) sums bf16 products in
+        # f32, as ``Model.loss`` does
+        with torch.enable_grad(), f32_reductions():
             loss, metrics = self.model.loss(
                 self._cast(unflatten(params, alias)), batch)
             grads = torch.autograd.grad(loss, alias, allow_unused=True)
