@@ -22,8 +22,8 @@ durable service with its snapshot store and WAL, recovered bit for bit
 two scorers and a replica, each a process of its own on the card, driven
 through ``ClusterRouter`` and held bit for bit to in-process fan-outs
 through a ragged stream, mutations, two compactions (a second router
-searching from a thread all through the first), healed frame faults,
-a scorer kill and a failover, and to exact search by recall (phase
+searching from a thread all through each, none refused), healed frame
+faults, a scorer kill and a failover, and to exact search by recall (phase
 ``cluster``) — ``python -m
 repro_torch.launch.serve --retrieval`` plain, durable and restored, and
 ``--role router`` and ``--arch`` (phase ``launch``), the PQ LM head at the
@@ -71,6 +71,7 @@ rows.
 from __future__ import annotations
 
 import argparse
+import collections
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -241,23 +242,31 @@ def profile_search(torch, idx, ds, nq, h, alpha, beta, runs=3):
 # slice: the querysim-shard configuration through the port's entry points
 # ---------------------------------------------------------------------------
 
+def querysim_shard(rows: int):
+    """The configuration's data (``rows`` of it, 128 queries, seed 3) and
+    index params, which ``slice``, ``cluster`` and
+    ``tools/cluster_probe.py`` share."""
+    from repro_torch.core.hybrid import HybridIndexParams
+    from repro_torch.data import make_hybrid_dataset
+    ds = make_hybrid_dataset(num_points=rows, num_queries=128,
+                             d_sparse=200000, d_dense=200, nnz_per_row=134,
+                             alpha=2.0, dense_weight=2.0, seed=3)
+    return ds, HybridIndexParams(keep_top=192, head_dims=128,
+                                 kmeans_iters=12, nq_max=256, backend="cuda")
+
+
 def run_slice(args, torch):
     from repro_torch.core.baselines import exact_topk, recall_at_h
     from repro_torch.core.engine import Backend, ScoringEngine
-    from repro_torch.core.hybrid import HybridIndex, HybridIndexParams
+    from repro_torch.core.hybrid import HybridIndex
     from repro_torch.core.sparse_index import sparse_queries_to_padded
-    from repro_torch.data import make_hybrid_dataset
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import PLAIN_CALLS
 
     t0 = time.perf_counter()
-    ds = make_hybrid_dataset(num_points=args.rows, num_queries=128,
-                             d_sparse=200000, d_dense=200, nnz_per_row=134,
-                             alpha=2.0, dense_weight=2.0, seed=3)
+    ds, params = querysim_shard(args.rows)
     gen_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    params = HybridIndexParams(keep_top=192, head_dims=128, kmeans_iters=12,
-                               nq_max=256, backend="cuda")
     t0 = time.perf_counter()
     idx = HybridIndex.build(ds.x_sparse, ds.x_dense, params, device="cuda")
     build_s = time.perf_counter() - t0
@@ -2843,11 +2852,14 @@ CLUSTER_INSERTS = 2048
 CLUSTER_DELETES = 256
 CLUSTER_SEARCH_LIMIT_S = 120.0   # a search's limit after the compaction
 # the share of the searches during a compaction that may be refused
-# StaleGeneration: the router's 8 retries span 1.4 s, a scorer's reload
-# about 19 s on the card, so a fan-out pinned to the new generation before
-# every scorer holds it is refused (ROADMAP C10, open); with the scorers
-# reloading in turn, 17 of 370 were
-CLUSTER_REFUSED_SHARE = 0.2
+# StaleGeneration: none.  A chunk pinned at the primary's new generation
+# that a scorer does not hold yet is served by the primary's full read
+# (ROADMAP C10, closed); before that repair, 14 of 345 were refused
+CLUSTER_REFUSED_SHARE = 0.0
+# the longest a search during a compaction may take: it waits neither on
+# the primary's fold nor on a follower's reload (C10; 0.23-0.24 s on the
+# card, 14.6-17.5 s before the repair)
+CLUSTER_FLIP_WALL_S = 5.0
 
 
 class InProcessCluster:
@@ -2945,6 +2957,19 @@ class InProcessCluster:
         return self.one if rows == 1 else self.fan
 
 
+def trace_hops(root: dict, names: dict) -> dict:
+    """One router search's trace, in short: its path, its annotations and
+    each hop's node, part and seconds (wall, and score on the node)."""
+    return {"seconds": root["duration_s"], "path": root["tags"].get("path"),
+            "annotations": root["annotations"],
+            "hops": [{"node": names.get(c["tags"].get("peer"),
+                                        c["tags"].get("peer")),
+                      "part": c["tags"].get("part"),
+                      "wall_s": c["tags"].get("wall_s"),
+                      "score_s": c["tags"].get("score_s")}
+                     for c in root["children"]]}
+
+
 def node_stats(cluster) -> dict:
     """The ``stats`` reply of every live node, by node name."""
     from repro_torch.serve.cluster import ShardClient
@@ -2996,7 +3021,7 @@ def run_cluster(torch, ds, params):
     nq = ds.q_dense.shape[0]
     requests = [rng.integers(0, nq, int(q)) for q in rng.integers(1, 33, 64)]
     rows32 = np.arange(32)
-    parity_checks = {"fan": 0, "one": 0}
+    parity_checks = {"fan": 0, "one": 0, "flip_direct": 0}
     cluster = None
     routers = []
     try:
@@ -3126,24 +3151,88 @@ def run_cluster(torch, ds, params):
         recall = {"after_deletes": router_recall("after the deletes")}
         delta_slots = idx.mutable_state.delta.capacity
 
-        def compact(want_gen, searched=False):
-            """Compact through the router (until every follower serves the
-            new generation) and in-process; parity and recall after.  With
-            ``searched``, a second router searches from a thread all
-            through the compaction (``searches_during``)."""
+        def compact(want_gen):
+            """Compact in-process, then through the router (until every
+            follower serves the new generation, ``held_compaction``),
+            while a second router searches from a thread all through it
+            (``searches_during``); parity and recall after.  Prints the
+            searches, the compaction's steps (the router's
+            ``cluster.compact`` trace: the fold, then each reload), each
+            node's stages of them and the seconds scorer 0's reload was
+            held (within the compaction's seconds)."""
+            folded = comp.idx.compact()
             t0 = time.perf_counter()
-            if searched:
-                gen = searches_during(router.compact)
-            else:
-                gen = router.compact()
+            gen = searches_during(lambda: held_compaction(folded))
             compact_s.append(time.perf_counter() - t0)
-            comp.idx = comp.idx.compact()
+            steps = [trace_hops(r, names) for r in router.obs.tracer.take()
+                     if r["name"] == "cluster.compact"][-1]
+            emit("cluster_compaction", generation=gen,
+                 seconds=compact_s[-1], held_s=held_s[-1],
+                 **during_compaction[f"to_generation_{gen}"],
+                 steps=steps["hops"],
+                 node_stages_s={n: st["stages_s"] for n, st in
+                                node_stats(cluster).items()})
+            comp.idx = folded
             check(gen == want_gen, f"compaction went to generation {gen}")
             parity(router, f"after compaction to generation {gen}")
             recall[f"after_compaction_{gen}"] = router_recall(
                 f"after compaction to generation {gen}")
             slice_bytes[gen] = [tensor_bytes(e.arrays)
                                 for e in comp._engines()[0]]
+
+        def held_compaction(folded):
+            """``router.compact`` with scorer 0's reload held before its
+            swap.  While it is held, the primary serves the new generation
+            and scorer 0 holds only the old one: a fresh router's 32-row
+            search must be served by the primary's full read
+            (``flip_direct``, C10) and equal ``one`` on ``folded`` bit for
+            bit.  Then the release; returns the new generation."""
+            want = InProcessCluster(torch, folded, scorers, h, alpha,
+                                    beta).one(ds.q_sparse[rows32],
+                                              ds.q_dense[rows32])
+            box = {}
+
+            def run():
+                try:
+                    box["gen"] = router.compact()
+                except BaseException as e:          # raised below
+                    box["error"] = e
+
+            sc = ShardClient("127.0.0.1", cluster.scorers[0].port,
+                             timeout=120)
+            t = threading.Thread(target=run, daemon=True)
+            t_held = None
+            try:
+                sc.call("fault", {"mode": "hold_reload"})
+                t.start()
+                deadline = time.monotonic() + CLUSTER_SEARCH_LIMIT_S
+                while sc.call("stats")[0]["holding"] != ["reload"]:
+                    check(t.is_alive() and time.monotonic() < deadline,
+                          "scorer 0's reload was never held: "
+                          f"{box.get('error')!r}")
+                    time.sleep(0.1)
+                t_held = time.perf_counter()
+                probe = cluster.router(h=h, alpha=alpha, beta=beta,
+                                       timeout=120)
+                routers.append(probe)
+                got = probe.search_sparse(ds.q_sparse[rows32],
+                                          ds.q_dense[rows32])
+                check(probe.stats["flip_direct"] == 32,
+                      "a 32-row search with scorer 0 behind was not served "
+                      f"by the primary's full read: {probe.stats}")
+                same(got, want, "a flip_direct search during a compaction")
+                parity_checks["flip_direct"] += 1
+            finally:
+                sc.call("fault", {"mode": "release_reload"})
+                sc.close()
+                held_s.append(None if t_held is None
+                              else time.perf_counter() - t_held)
+                if t.is_alive():
+                    t.join(CLUSTER_SEARCH_LIMIT_S * 4)
+            check(not t.is_alive(), "the compaction did not end")
+            if "error" in box:
+                raise box["error"]
+            return box["gen"]
 
         def mutate(seed):
             """64 inserts and 6 deletes (2 of the new rows, 4 of main)
@@ -3171,18 +3260,23 @@ def run_cluster(torch, ds, params):
             generation flip gets StaleGeneration from a node and retries
             (C8: a fan-out cut by one shard's refusal must settle its
             other entries, or the retry waits on them for good); while the
-            scorers reload, a fan-out may spend the router's retries and
-            raise StaleGeneration (C10, open), which is counted and held
-            to ``CLUSTER_REFUSED_SHARE`` of the searches.  Every search
-            must end within the thread's time limit, the ones that return
-            without duplicate ids in a row and without an id deleted
-            before the compaction began, and the two after it must
-            return."""
+            scorers reload, a chunk pinned at the new generation is served
+            by the primary's full read (``flip_direct``, C10).  A search
+            refused StaleGeneration is counted and held to
+            ``CLUSTER_REFUSED_SHARE`` (none), and each must take less than
+            ``CLUSTER_FLIP_WALL_S``.  Every search must end within
+            the thread's time limit, the ones that return without
+            duplicate ids in a row and without an id deleted before the
+            compaction began, and the two after it must return.  Prints
+            the searches by path, their wall times and the slowest one's
+            trace (``trace_hops``)."""
             from repro_torch.serve.cluster import RemoteError
             bg = cluster.router(h=h, alpha=alpha, beta=beta, timeout=120)
             routers.append(bg)
             stop, box = threading.Event(), {}
             walls = {"returned": [], "refused": []}
+            paths = collections.Counter()
+            slowest = {"seconds": -1.0}
             dead = np.fromiter(deleted, np.int64)
 
             def search(i, refusable):
@@ -3196,6 +3290,11 @@ def run_cluster(torch, ds, params):
                         raise
                     walls["refused"].append(time.perf_counter() - t0)
                     return
+                finally:
+                    for root in bg.obs.tracer.take():
+                        paths[root["tags"].get("path")] += 1
+                        if root["duration_s"] > slowest["seconds"]:
+                            slowest.update(trace_hops(root, names))
                 walls["returned"].append(time.perf_counter() - t0)
                 for row in ids:
                     live = row[row >= 0]
@@ -3232,26 +3331,34 @@ def run_cluster(torch, ds, params):
                 raise box["error"]
             every = walls["returned"] + walls["refused"]
             refused = len(walls["refused"]) / max(1, len(every) - 2)
+            during_compaction[f"to_generation_{gen}"] = dict(
+                searches=len(every) - 2, returned=len(walls["returned"]) - 2,
+                refused_stale=len(walls["refused"]),
+                refused_bound=CLUSTER_REFUSED_SHARE,
+                paths=dict(paths), flip_direct_rows=bg.stats["flip_direct"],
+                p50_ms=percentile_ms(every, 50),
+                p99_ms=percentile_ms(every, 99), max_s=max(every),
+                stale_retries=bg.stats["stale_retries"],
+                resyncs=bg.stats["resyncs"], slowest=slowest)
             check(refused <= CLUSTER_REFUSED_SHARE,
                   f"{len(walls['refused'])} of {len(every) - 2} searches "
                   "during compaction were refused StaleGeneration, more "
                   f"than {CLUSTER_REFUSED_SHARE:.0%}")
-            during_compaction.update(
-                searches=len(every) - 2, returned=len(walls["returned"]) - 2,
-                refused_stale=len(walls["refused"]),
-                refused_bound=CLUSTER_REFUSED_SHARE, max_s=max(every),
-                p50_ms=percentile_ms(every, 50),
-                stale_retries=bg.stats["stale_retries"],
-                resyncs=bg.stats["resyncs"])
+            check(max(every) < CLUSTER_FLIP_WALL_S,
+                  f"a search during compaction took {max(every):.2f} s, "
+                  f"not under {CLUSTER_FLIP_WALL_S} s: "
+                  f"{json.dumps(slowest)}")
             return gen
 
         # two compactions, mutations before each and after the last: the
         # second one drops generation 1 from every scorer; a second router
-        # searches all through the first
-        compact_s = []
+        # searches all through each
+        names = {hd.addr: hd.name for hd in
+                 [cluster.primary, *cluster.scorers, *cluster.replicas]}
+        compact_s, held_s = [], []
         during_compaction = {}
         deleted = set(doomed.tolist())
-        compact(2, searched=True)
+        compact(2)
         mutate(13)
         readings = {"bootstrap": boot, "compacted_once": node_stats(cluster)}
         compact(3)

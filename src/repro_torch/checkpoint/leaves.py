@@ -39,10 +39,15 @@ def _contiguous(arr: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.asarray(arr))
 
 
+def _raw(a: np.ndarray) -> memoryview:
+    """The raw C-order bytes of a contiguous array, viewed, not copied."""
+    return memoryview(a.reshape(-1).view(np.uint8))
+
+
 def array_sha256(arr: np.ndarray) -> str:
     """Hex sha256 of an array's raw C-order bytes (dtype/shape not mixed in —
     the manifest records those separately, so the hash pins content only)."""
-    return hashlib.sha256(_contiguous(arr).tobytes()).hexdigest()
+    return hashlib.sha256(_raw(_contiguous(arr))).hexdigest()
 
 
 def write_array_blob(path: str, arr: np.ndarray) -> dict:
@@ -52,7 +57,7 @@ def write_array_blob(path: str, arr: np.ndarray) -> dict:
     The write goes through a same-directory temp file + atomic rename so a
     crash mid-write never leaves a half-length blob under the final name."""
     a = _contiguous(arr)
-    buf = a.tobytes()          # serialize ONCE: written and hashed below
+    buf = _raw(a)              # the array's own bytes: written and hashed
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         f.write(buf)
@@ -70,15 +75,17 @@ def read_array_blob(path: str, meta: dict, *, verify: bool = True) -> np.ndarray
     ``meta`` is the manifest entry; with ``verify`` (the default) the
     recorded sha256 is recomputed and a mismatch raises ``ValueError`` —
     a corrupt snapshot must fail recovery loudly, never score queries."""
+    # read into a buffer the array then owns: no copy of the blob's bytes
+    buf = bytearray(os.path.getsize(path))
     with open(path, "rb") as f:
-        buf = f.read()
-    if len(buf) != int(meta["nbytes"]):
+        got_n = f.readinto(buf)
+    if got_n != int(meta["nbytes"]):
         raise ValueError(f"{path}: expected {meta['nbytes']} bytes, "
-                         f"found {len(buf)}")
+                         f"found {got_n}")
     arr = np.frombuffer(buf, dtype=np.dtype(meta["dtype"]))
-    arr = arr.reshape(tuple(meta["shape"])).copy()
+    arr = arr.reshape(tuple(meta["shape"]))
     if verify:
-        got = array_sha256(arr)
+        got = hashlib.sha256(buf).hexdigest()
         if got != meta["sha256"]:
             raise ValueError(f"{path}: checksum mismatch "
                              f"(manifest {meta['sha256'][:12]}…, "
@@ -86,10 +93,10 @@ def read_array_blob(path: str, meta: dict, *, verify: bool = True) -> np.ndarray
     return arr
 
 
-def pack_arrays(arrays: dict[str, np.ndarray]) -> bytes:
-    """Serialize named arrays to one deterministic byte string (the WAL
-    payload unit): a JSON header line describing every array's dtype, shape
-    and byte extent, then the concatenated raw C-order bytes."""
+def pack_array_parts(arrays: dict[str, np.ndarray]) -> list:
+    """``pack_arrays``' bytes as a list of buffers in order: the header
+    line, then each array's own contiguous bytes, viewed, not copied (a
+    large frame is sent or hashed without a copy of its tensors)."""
     metas, blobs = [], []
     off = 0
     for name, arr in arrays.items():
@@ -97,26 +104,38 @@ def pack_arrays(arrays: dict[str, np.ndarray]) -> bytes:
         metas.append({"name": name, "dtype": a.dtype.str,
                       "shape": list(a.shape), "offset": off,
                       "nbytes": int(a.nbytes)})
-        blobs.append(a.tobytes())
+        blobs.append(_raw(a))
         off += a.nbytes
     header = json.dumps({"v": 1, "arrays": metas},
                         separators=(",", ":")).encode()
-    return header + b"\n" + b"".join(blobs)
+    return [header + b"\n", *blobs]
 
 
-def unpack_arrays(buf: bytes) -> dict[str, np.ndarray]:
-    """Inverse of ``pack_arrays``; bit-exact including dtypes."""
-    nl = buf.index(b"\n")
-    header = json.loads(buf[:nl].decode())
-    body = buf[nl + 1:]
+def pack_arrays(arrays: dict[str, np.ndarray]) -> bytes:
+    """Serialize named arrays to one deterministic byte string (the WAL
+    payload unit): a JSON header line describing every array's dtype, shape
+    and byte extent, then the concatenated raw C-order bytes."""
+    return b"".join(pack_array_parts(arrays))
+
+
+def unpack_arrays(buf, start: int = 0) -> dict[str, np.ndarray]:
+    """Inverse of ``pack_arrays`` on ``buf[start:]``; bit-exact including
+    dtypes.  An array whose bytes in a writable ``buf`` (a ``bytearray``
+    received for them) are aligned for its dtype is a view of it; any other
+    is a copy, so every array returned is writable and aligned."""
+    nl = buf.index(b"\n", start)
+    header = json.loads(bytes(buf[start:nl]).decode())
+    body = nl + 1
     out = {}
     for m in header["arrays"]:
-        lo = int(m["offset"])
-        raw = body[lo:lo + int(m["nbytes"])]
-        if len(raw) != int(m["nbytes"]):
+        lo, n = body + int(m["offset"]), int(m["nbytes"])
+        if lo + n > len(buf):
             raise ValueError(f"payload truncated inside array {m['name']!r}")
-        arr = np.frombuffer(raw, dtype=np.dtype(m["dtype"]))
-        out[m["name"]] = arr.reshape(tuple(m["shape"])).copy()
+        dt = np.dtype(m["dtype"])
+        arr = np.frombuffer(buf, dtype=dt, count=n // dt.itemsize, offset=lo)
+        if not (arr.flags.writeable and arr.flags.aligned):
+            arr = arr.copy()
+        out[m["name"]] = arr.reshape(tuple(m["shape"]))
     return out
 
 

@@ -20,4 +20,4 @@ from .snapshot import (FORMAT_VERSION, list_snapshots,  # noqa: F401
 from .wal import (RECORD_DELETE, RECORD_INSERT, RECORD_NOOP,  # noqa: F401
                   MutationWAL, WalRecord)
 from .recovery import (Durability, RecoveryResult, apply_record,  # noqa: F401
-                       bootstrap, recover)
+                       bootstrap, recover, reopen)

@@ -35,7 +35,7 @@ from .snapshot import load_snapshot, read_current, write_snapshot
 from .wal import RECORD_DELETE, RECORD_INSERT, RECORD_NOOP, MutationWAL
 
 __all__ = ["Durability", "RecoveryResult", "recover", "bootstrap",
-           "apply_record"]
+           "apply_record", "reopen"]
 
 _WAL_SUBDIR = "wal"
 
@@ -238,3 +238,11 @@ def recover(root: str, *, backend=None, sync: bool = True,
     return RecoveryResult(index=index, durability=Durability(root, wal),
                           snapshot=cur["snapshot"], replayed=replayed,
                           last_seq=last_seq)
+
+
+def reopen(root: str, *, sync: bool = True, metrics=None) -> Durability:
+    """Re-attach the log of a store whose index the caller already holds
+    (``recover``'s, after the store was moved to ``root``): appends go on
+    where the log ended; nothing is loaded or replayed."""
+    return Durability(root, MutationWAL(os.path.join(root, _WAL_SUBDIR),
+                                        sync=sync, metrics=metrics))

@@ -434,7 +434,7 @@ class ShardClient:
                 deferred.append(rel)       # commit pointers strictly last
                 continue
             fmeta, farr = self.call("store_file", {"path": rel})
-            data = farr["data"].tobytes()
+            data = farr["data"]            # a view of the reply's bytes
             digests[rel] = hashlib.sha256(data).hexdigest()
             path = os.path.join(dst_root, rel)
             os.makedirs(os.path.dirname(path) or dst_root, exist_ok=True)
@@ -450,7 +450,7 @@ class ShardClient:
             fmeta, farr = self.call("store_file", {"path": rel})
             path = os.path.join(dst_root, rel)
             with open(path, "wb") as f:
-                f.write(farr["data"].tobytes())
+                f.write(farr["data"])
                 f.flush()
                 os.fsync(f.fileno())
             fsync_dir(os.path.dirname(path) or dst_root)

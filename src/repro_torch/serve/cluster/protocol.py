@@ -33,7 +33,7 @@ import socket
 import struct
 import zlib
 
-from ...checkpoint.leaves import pack_arrays, unpack_arrays
+from ...checkpoint.leaves import pack_array_parts, unpack_arrays
 
 __all__ = ["TornFrameError", "RemoteError", "send_msg", "recv_msg",
            "build_frame", "MSG_REQUEST", "MSG_RESPONSE", "MSG_ERROR"]
@@ -45,6 +45,7 @@ MSG_ERROR = 3
 _MAGIC = b"HC"
 _HEADER = struct.Struct("<2sBII")       # magic, op, length, crc32
 _PREFIX = struct.Struct("<2sBI")        # the crc-covered header fields
+_IOV_MAX = 1024                          # buffers one ``sendmsg`` takes
 
 
 class TornFrameError(ConnectionError):
@@ -66,6 +67,22 @@ def _frame_crc(op: int, payload: bytes) -> int:
                       zlib.crc32(_PREFIX.pack(_MAGIC, op, len(payload))))
 
 
+def _frame_parts(cmd: str, meta: dict | None, arrays: dict | None,
+                 op: int) -> list:
+    """One message's wire frame as a list of buffers in order: the
+    header, the meta line, then ``pack_array_parts``; the tensors' bytes
+    are views of the arrays, and the crc runs over the parts in turn."""
+    head = dict(meta or {})
+    head["cmd"] = cmd
+    parts = [json.dumps(head).encode() + b"\n",
+             *pack_array_parts(arrays or {})]
+    length = sum(len(p) for p in parts)
+    crc = zlib.crc32(_PREFIX.pack(_MAGIC, op, length))
+    for p in parts:
+        crc = zlib.crc32(p, crc)
+    return [_HEADER.pack(_MAGIC, op, length, crc), *parts]
+
+
 def build_frame(cmd: str, meta: dict | None = None,
                 arrays: dict | None = None, *,
                 op: int = MSG_REQUEST) -> bytes:
@@ -74,11 +91,7 @@ def build_frame(cmd: str, meta: dict | None = None,
     identical bytes to every scorer (the per-shard re-serialization was a
     measurable slice of the Q=1 RPC overhead); ``ShardClient.submit``
     accepts the pre-built frame directly."""
-    head = dict(meta or {})
-    head["cmd"] = cmd
-    payload = json.dumps(head).encode() + b"\n" + pack_arrays(arrays or {})
-    return _HEADER.pack(_MAGIC, op, len(payload),
-                        _frame_crc(op, payload)) + payload
+    return b"".join(_frame_parts(cmd, meta, arrays, op))
 
 
 def send_msg(sock: socket.socket, cmd: str, meta: dict | None = None,
@@ -88,28 +101,43 @@ def send_msg(sock: socket.socket, cmd: str, meta: dict | None = None,
     the JSON-scalar ``meta`` fields form the header line, ``arrays`` are
     named numpy tensors (bit-exact via ``pack_arrays``).  ``corrupt=True``
     flips a payload bit AFTER the crc is computed — the server-side fault
-    hook the torn-frame tests drive; a real sender never sets it."""
-    frame = bytearray(build_frame(cmd, meta, arrays, op=op))
+    hook the torn-frame tests drive; a real sender never sets it.  The
+    frame goes out by gathered writes of its parts, so its tensors are
+    never copied (the store files a follower fetches are hundreds of
+    MB)."""
+    parts = _frame_parts(cmd, meta, arrays, op)
+    n = sum(len(p) for p in parts)
     if corrupt:
+        frame = bytearray(b"".join(parts))
         frame[-1] ^= 0x40
-    sock.sendall(frame)
-    return len(frame)
+        parts = [frame]
+    views = [memoryview(p) for p in parts if len(p)]
+    i = 0
+    while i < len(views):
+        sent = sock.sendmsg(views[i:i + _IOV_MAX])
+        while i < len(views) and sent >= len(views[i]):
+            sent -= len(views[i])
+            i += 1
+        if sent:
+            views[i] = views[i][sent:]
+    return n
 
 
-def _recv_exact(sock: socket.socket, n: int) -> bytes:
-    """Read exactly n bytes or raise: ``ConnectionError`` on a clean EOF at
-    a frame boundary (peer went away), ``TornFrameError`` mid-frame."""
-    chunks, got = [], 0
+def _recv_exact(sock: socket.socket, n: int) -> bytearray:
+    """Read exactly n bytes into a buffer of their own, or raise:
+    ``ConnectionError`` on a clean EOF at a frame boundary (peer went
+    away), ``TornFrameError`` mid-frame."""
+    buf = bytearray(n)
+    view, got = memoryview(buf), 0
     while got < n:
-        chunk = sock.recv(min(n - got, 1 << 20))
-        if not chunk:
+        k = sock.recv_into(view[got:], min(n - got, 1 << 20))
+        if not k:
             if got == 0:
                 raise ConnectionError("peer closed the connection")
             raise TornFrameError(
                 f"connection closed mid-frame ({got}/{n} bytes)")
-        chunks.append(chunk)
-        got += len(chunk)
-    return b"".join(chunks)
+        got += k
+    return buf
 
 
 def recv_msg(sock: socket.socket) -> tuple[int, dict, dict]:
@@ -126,5 +154,6 @@ def recv_msg(sock: socket.socket) -> tuple[int, dict, dict]:
         raise TornFrameError("frame checksum mismatch")
     nl = payload.index(b"\n")
     meta = json.loads(payload[:nl].decode())
-    arrays = unpack_arrays(payload[nl + 1:])
+    # the arrays are views of the frame's own buffer where aligned
+    arrays = unpack_arrays(payload, nl + 1)
     return op, meta, arrays

@@ -32,6 +32,16 @@ applied every sealed seq — and re-points every node at it.  The promoted
 term fences the deposed primary: any response carrying a lower term
 raises ``StaleTermError`` instead of being folded into state.
 
+Compaction (DESIGN.md §6.3 across processes): the primary flips to
+generation g + 1 first, and the scorers load it one after another.  A
+chunk pinned at g + 1 that a scorer refuses is served by the primary's
+``part="full"`` read (``flip_direct`` in ``stats``); the router then
+reads through the primary alone until a ``status`` probe finds every
+scorer at g + 1.  No search waits on a reload or is refused for a flip,
+as no in-process search is (``QueryService.compact``).  A
+``StaleGeneration`` that no path serves is retried, after a resync, up
+to the client's ``timeout``.
+
 Read-your-writes: every mutation ack carries its WAL seq; a ``Session``
 records the max as its watermark, and follower reads are only served by a
 replica whose ``applied_seq`` covers it — otherwise the router falls back
@@ -126,6 +136,21 @@ class _Auth:
     delta_live: int
 
 
+# the least interval between two ``status`` probes of scorers found
+# lagging the primary's generation
+LAG_PROBE_S = 0.3
+# the back-off before a StaleGeneration retry: this times the attempt,
+# capped
+STALE_BACKOFF_S, STALE_BACKOFF_MAX_S = 0.05, 0.25
+
+
+class _ScorersBehind(Exception):
+    """A scorer refused the chunk's generation, and the primary's delta
+    reply shows that generation is the primary's current one: a
+    compaction's flip is in progress and the scorers have not loaded it
+    yet."""
+
+
 def _settle(entries) -> None:
     """Collect and drop the replies of coalesced entries whose chunk is
     failing, so each entry's batch completes exactly once and its client's
@@ -188,6 +213,11 @@ class ClusterRouter:
         self.replica_max_lag = replica_max_lag
         self.lockstep = lockstep
         self.direct_q_max = int(direct_q_max)
+        self.timeout = timeout
+        # a generation the scorers were found not to hold yet, and when
+        # they may next be probed (``_scorers_lag``)
+        self._lag_gen: int | None = None
+        self._lag_probe_at = 0.0
         self._lock = threading.RLock()
         self._pool = ThreadPoolExecutor(
             max_workers=max(2, len(self.scorers) + 1),
@@ -210,7 +240,8 @@ class ClusterRouter:
         self._last_seq = int(info["applied_seq"])
         self._replica_seq = [(-1) for _ in self.replicas]
         self.stats = {"primary_reads": 0, "replica_reads": 0,
-                      "direct_reads": 0, "failovers": 0, "degraded": 0,
+                      "direct_reads": 0, "flip_direct": 0,
+                      "failovers": 0, "degraded": 0,
                       "stale_retries": 0, "excluded_stale": 0,
                       "queries": 0, "resyncs": 0, "promotions": 0}
         # cumulative per-stage hop counters, folded from finished chunk
@@ -373,17 +404,23 @@ class ClusterRouter:
         have every scorer/replica reload the new store, then
         atomically flip the router's generation + seed the new epoch's
         cache from the compact ack's tag.  Old-generation searches keep
-        working mid-flip (servers hold the last two generations).  Returns
+        working mid-flip (servers hold the last two generations), and a
+        search pinned at the new one is served by the primary until every
+        scorer holds it (module docstring).  A ``cluster.compact`` trace
+        times the fold and each reload (one ``rpc`` child each).  Returns
         the new generation number."""
-        for r in self.replicas:
-            r.call("fault", {"mode": "pause_shipping"})
-        meta, arrays = self.primary.call("compact", {"retrain": retrain},
-                                         retry=False)
-        gen = int(meta["gen"])
-        for s in self.scorers:
-            s.call("reload", {"gen": gen})
-        for r in self.replicas:
-            r.call("reload", {"gen": gen})
+        with self.obs.tracer.root("cluster.compact") as sp:
+            for r in self.replicas:
+                r.call("fault", {"mode": "pause_shipping"})
+            hs = sp.child("rpc", peer=self.primary.addr, part="compact")
+            meta, arrays = self.primary.call("compact", {"retrain": retrain},
+                                             retry=False, span=hs)
+            hs.end()
+            gen = int(meta["gen"])
+            for c in [*self.scorers, *self.replicas]:
+                hs = sp.child("rpc", peer=c.addr, part="reload")
+                c.call("reload", {"gen": gen}, span=hs)
+                hs.end()
         with self._lock:
             self._fence_term(int(meta.get("term", 0)))
             self.gen = gen
@@ -511,19 +548,18 @@ class ClusterRouter:
                       session: Session | None = None):
         """Serve RAW scipy sparse queries: encode against the pinned
         generation's compact column space (generation-bound, like
-        ``QueryService.search_sparse``), then fan out.  Returns
+        ``QueryService.search_sparse``; encoded again whenever a retry
+        pins another generation), then fan out.  Returns
         ``(scores (Q, h), ids (Q, h))`` in external ids."""
-        pin = self._pin()
-        q_dims, q_vals = sparse_queries_to_padded(q_sparse, pin.cols,
-                                                  nq_max=self._nq_max)
-        return self._search_pinned(pin,
-                                   np.atleast_2d(np.asarray(q_dims,
-                                                            np.int32)),
-                                   np.atleast_2d(np.asarray(q_vals,
-                                                            np.float32)),
-                                   np.atleast_2d(np.asarray(q_dense,
-                                                            np.float32)),
-                                   h, alpha, beta, session)
+        q_dense = np.atleast_2d(np.asarray(q_dense, np.float32))
+
+        def encode(pin):
+            q_dims, q_vals = sparse_queries_to_padded(q_sparse, pin.cols,
+                                                      nq_max=self._nq_max)
+            return (np.atleast_2d(np.asarray(q_dims, np.int32)),
+                    np.atleast_2d(np.asarray(q_vals, np.float32)), q_dense)
+        return self._search_pinned(self._pin(), encode, h, alpha, beta,
+                                   session)
 
     def search(self, q_dims, q_vals, q_dense, *, h: int | None = None,
                alpha: int | None = None, beta: int | None = None,
@@ -532,18 +568,19 @@ class ClusterRouter:
         — streaming clients should prefer ``search_sparse``).  Returns
         ``(scores (Q, h), ids (Q, h))`` numpy arrays, bit-identical to the
         in-process ``QueryService`` fan-out on the same state."""
-        return self._search_pinned(
-            self._pin(),
-            np.atleast_2d(np.asarray(q_dims, np.int32)),
-            np.atleast_2d(np.asarray(q_vals, np.float32)),
-            np.atleast_2d(np.asarray(q_dense, np.float32)),
-            h, alpha, beta, session)
+        q = (np.atleast_2d(np.asarray(q_dims, np.int32)),
+             np.atleast_2d(np.asarray(q_vals, np.float32)),
+             np.atleast_2d(np.asarray(q_dense, np.float32)))
+        return self._search_pinned(self._pin(), lambda pin: q, h, alpha,
+                                    beta, session)
 
-    def _search_pinned(self, pin, q_dims, q_vals, q_dense,
-                       h, alpha, beta, session, _retries: int = 8):
+    def _search_pinned(self, pin, encode, h, alpha, beta, session):
+        """Serve the queries ``encode(pin)`` gives, a chunk of the largest
+        bucket at a time; ``encode`` is called again for a new pin."""
         h = self.h if h is None else h
         alpha = self.alpha if alpha is None else alpha
         beta = self.beta if beta is None else beta
+        q_dims, q_vals, q_dense = encode(pin)
         qn_total = q_dims.shape[0]
         out_s = np.empty((qn_total, h), np.float32)
         out_i = np.empty((qn_total, h), np.int64)
@@ -554,7 +591,9 @@ class ClusterRouter:
             # the trace tree the hop breakdown is sourced from
             with self.obs.tracer.root("cluster.search",
                                       qn=hi - lo, gen=pin.gen) as span:
-                for attempt in range(_retries):
+                deadline = time.monotonic() + self.timeout
+                attempt = 0
+                while True:
                     try:
                         s, ids = self._run_chunk(
                             pin, q_dims[lo:hi], q_vals[lo:hi],
@@ -562,26 +601,29 @@ class ClusterRouter:
                             span)
                         break
                     except RemoteError as e:
-                        if "StaleGeneration" not in str(e) \
-                                or attempt + 1 >= _retries:
+                        left = deadline - time.monotonic()
+                        if "StaleGeneration" not in str(e) or left <= 0:
                             raise
                         # a compaction flipped generations mid-flight
                         # (possibly driven by ANOTHER router): re-learn
                         # the cluster state from the primary, re-pin,
-                        # retry against the new epoch
+                        # retry against the new epoch, until the
+                        # client's timeout
+                        attempt += 1
                         with self._lock:
                             self.stats["stale_retries"] += 1
                         span.annotate("stale_generation_resync "
-                                      f"attempt={attempt + 1}")
-                        # mid-flip the scorers lag the primary's new
-                        # generation by a store fetch + reload — back off
-                        # so the retry budget spans the whole flip
-                        time.sleep(0.05 * (attempt + 1))
+                                      f"attempt={attempt}")
+                        time.sleep(min(STALE_BACKOFF_S * (attempt - 1),
+                                       STALE_BACKOFF_MAX_S, left))
                         try:
                             self._resync()
                         except (ShardUnavailableError, ConnectionError):
                             pass
+                        gen = pin.gen
                         pin = self._pin()
+                        if pin.gen != gen:
+                            q_dims, q_vals, q_dense = encode(pin)
                         span.set("gen", pin.gen)
             out_s[lo:hi], out_i[lo:hi] = s, ids
         with self._lock:
@@ -607,8 +649,19 @@ class ClusterRouter:
             if bucket <= self.direct_q_max and not self.lockstep:
                 return self._primary_full(pin, qd, qv, qe, qn, h,
                                           alpha, beta, span)
-            return self._fanout(pin, qd, qv, qe, qn, h, alpha, beta,
-                                span)
+            if not self._scorers_lag(pin.gen):
+                try:
+                    return self._fanout(pin, qd, qv, qe, qn, h, alpha,
+                                        beta, span)
+                except _ScorersBehind:
+                    with self._lock:
+                        self._lag_gen = pin.gen
+                        self._lag_probe_at = time.monotonic() + LAG_PROBE_S
+            # a flip in progress: the primary holds the pinned generation
+            # whole, and its full read is the one a replica would serve
+            span.annotate(f"scorers_behind gen={pin.gen}: primary full")
+            return self._primary_full(pin, qd, qv, qe, qn, h, alpha, beta,
+                                      span, stat="flip_direct")
         except (ShardUnavailableError, ConnectionError):
             with self._lock:
                 self.stats["failovers"] += 1
@@ -624,6 +677,44 @@ class ClusterRouter:
                 "a scoring shard is unreachable and no replica has "
                 f"applied seq >= {floor}; refusing to return a silently "
                 "truncated top-k") from None
+
+    def _scorers_lag(self, gen: int) -> bool:
+        """True while the scorers are known not to hold ``gen`` (a chunk
+        then goes to the primary).  At most every ``LAG_PROBE_S`` the
+        scorers' ``status`` is read, and once each reports ``gen`` or
+        later the router fans out again."""
+        with self._lock:
+            if self._lag_gen != gen:
+                return False
+            now = time.monotonic()
+            if now < self._lag_probe_at:
+                return True
+            self._lag_probe_at = now + LAG_PROBE_S
+        try:
+            held = min((int(c.call("status")[0]["gen"])
+                        for c in self.scorers), default=gen)
+        except (ShardUnavailableError, ConnectionError, RemoteError):
+            return True
+        if held < gen:
+            return True
+        with self._lock:
+            if self._lag_gen == gen:
+                self._lag_gen = None
+        return False
+
+    @staticmethod
+    def _behind(pin, e: RemoteError, delta_result) -> bool:
+        """Whether a fan-out cut by ``e`` met a flip in progress: a scorer
+        refused the pinned generation, and the primary's delta reply
+        (``delta_result()``, settled) shows it as the primary's current
+        one."""
+        if "StaleGeneration" not in str(e):
+            return False
+        try:
+            dmeta, _ = delta_result()
+        except Exception:
+            return False
+        return int(dmeta.get("current_gen", pin.gen)) == pin.gen
 
     def _collect(self, client, entry, cmd, meta, arrays, span=NULL_SPAN):
         """Collect one pipelined reply, healing a transport failure (torn
@@ -688,7 +779,7 @@ class ClusterRouter:
         self._hop_c["merge_s"].inc(dt)
 
     def _primary_full(self, pin, qd, qv, qe, qn, h, alpha, beta,
-                      span=NULL_SPAN):
+                      span=NULL_SPAN, stat: str = "direct_reads"):
         """The adaptive fan-out cutoff: serve one small chunk with ONE
         ``part="full"`` request to the primary (DESIGN.md §8.8).  The
         primary scores its whole main engine plus the live delta — the
@@ -699,9 +790,11 @@ class ClusterRouter:
         kills and the server self-slacks its fetch depth by them, so a
         stale pinned cache can neither truncate nor resurrect; a frozen
         pinned generation gets the server's StaleGeneration refusal and
-        re-pins through ``_search_pinned``'s retry loop."""
+        re-pins through ``_search_pinned``'s retry loop.  ``stat`` names
+        the counter of such reads: ``direct_reads`` for the cutoff,
+        ``flip_direct`` for a chunk the scorers cannot serve yet."""
         t0 = time.perf_counter()
-        span.set("path", "direct")
+        span.set("path", "direct" if stat == "direct_reads" else stat)
         dead = pin.main_dead | pin.fully_deleted
         h_fetch = min(h + (ceil16(len(dead)) if dead else 0),
                       pin.num_points)
@@ -733,7 +826,7 @@ class ClusterRouter:
         span.set("wall_s", time.perf_counter() - t0)
         with self._lock:
             self.stats["primary_reads"] += qn
-            self.stats["direct_reads"] += qn
+            self.stats[stat] += qn
         return s, ids
 
     def _fanout(self, pin, qd, qv, qe, qn, h, alpha, beta,
@@ -783,8 +876,13 @@ class ClusterRouter:
             try:
                 mains = [f.result() for f in futs]
                 dmeta, darr = dfut.result()
-            except BaseException:
+            except RemoteError as e:
                 wait_futures([*futs, dfut])    # none outlives the chunk
+                if self._behind(pin, e, dfut.result):
+                    raise _ScorersBehind() from e
+                raise
+            except BaseException:
+                wait_futures([*futs, dfut])
                 raise
             for (rm, _), hs in zip(mains, hspans):
                 self._finish_hop(hs, rm)
@@ -818,12 +916,15 @@ class ClusterRouter:
                 dmeta, darr = self._collect(self.primary, dentry, "search",
                                             dmeta_req, q_arrays,
                                             span=dspan)
-            except BaseException:
+            except BaseException as e:
                 # a shard's StaleGeneration (or any failure) cuts the
                 # collect loop: settle every entry first, or the clients
                 # whose entries went uncollected keep their coalescing
                 # slot forever and queue every later search behind it
                 _settle([*entries, dentry])
+                if isinstance(e, RemoteError) and \
+                        self._behind(pin, e, dentry.result):
+                    raise _ScorersBehind() from e
                 raise
             self._finish_hop(dspan, dmeta)
 

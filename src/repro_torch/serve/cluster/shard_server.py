@@ -39,6 +39,11 @@ against a generation this process does not hold raises
 ``StaleGenerationError`` back across the wire — the router re-syncs and
 retries rather than merging parts from mixed generations.
 
+A compaction never stalls a read: the primary folds and checkpoints off
+the lock that searches, ``info`` and resyncs take (mutations wait on a
+lock of their own), and a follower fetches and loads the new store off it
+too; each then swaps the new generation in under the lock at once.
+
 The device (``--device``, ``cuda`` unless the caller asks for the CPU):
 every engine of the node lives there.  A search request's arrays cross to
 it once; results come back to the host with ``device.to_numpy`` and are
@@ -86,6 +91,9 @@ from .protocol import MSG_ERROR, MSG_RESPONSE, recv_msg, send_msg
 
 __all__ = ["ShardServer", "StaleGenerationError", "NotPrimaryError",
            "PromotionError", "main"]
+
+
+HOLD_LIMIT_S = 300.0      # the longest a held fold or reload waits
 
 
 class StaleGenerationError(RuntimeError):
@@ -168,6 +176,9 @@ class ShardServer:
         self._score_s = collections.deque(maxlen=4096)
         self.kernel_build: dict = {}
         self.bootstrap_s = 0.0
+        # seconds by stage of the latest fold (primary) or store load
+        # (scorer, replica: bootstrap or reload)
+        self.stages_s: dict[str, float] = {}
         self.fetched_bytes = 0           # snapshot bytes copied from peers
         # the one thread that runs searches on the device (module docstring)
         self._device_thread = ThreadPoolExecutor(
@@ -182,9 +193,21 @@ class ShardServer:
         self.poll_interval = poll_interval
         self.generation = 1
         self._lock = threading.RLock()
+        # mutations and the primary's fold: held across a whole fold, so
+        # no mutation lands between the fold and the swap (it would be
+        # lost); searches, ``info`` and resyncs take only ``_lock``.
+        # Order: ``_mut_lock`` before ``_lock``
+        self._mut_lock = threading.Lock()
+        # a follower's reloads, one at a time (a replica's share one
+        # directory); taken before ``_lock``, never with ``_mut_lock``
+        self._reload_lock = threading.Lock()
         self._stop = threading.Event()
         self._listener: socket.socket | None = None
         self._faults: set[str] = set()
+        # armed holds (``hold_fold`` / ``hold_reload``) and the steps
+        # waiting on one now (``_hold``)
+        self._holds: dict[str, threading.Event] = {}
+        self._holding: set[str] = set()
         self._ship_paused = threading.Event()
         self._ship_thread: threading.Thread | None = None
         self.shipped_records = 0
@@ -271,10 +294,13 @@ class ShardServer:
         the fetched copy — and at most the last two generations, so
         in-flight old-generation requests drain during a flip."""
         root = os.path.join(self.workdir, f"gen-{gen:04d}")
+        t0 = time.perf_counter()
         self._fetch_store(root)
+        t1 = time.perf_counter()
         index, _ = persist.load_snapshot(root, backend=self.backend,
                                          device="cpu")
         shutil.rmtree(root)              # the slice below is all it keeps
+        t2 = time.perf_counter()
         parts, offsets = split_index_arrays(index.engine.arrays,
                                             self.num_shards, ragged=True)
         lo = int(offsets[self.shard])
@@ -285,7 +311,13 @@ class ShardServer:
                  ext_ids=np.asarray(index.mutable_state.id_map[lo:hi]),
                  num_points_total=index.engine.arrays.num_points)
         del index, parts
+        self.stages_s = {"fetch": t1 - t0, "load": t2 - t1,
+                              "slice_to_device": time.perf_counter() - t2}
+        self._hold("reload")
         with self._lock:
+            if gen in self._gens or gen < self.generation:   # overtaken
+                g.release()
+                return
             self._gens[gen] = g
             self.generation = gen
             for old in sorted(self._gens)[:-2]:
@@ -494,22 +526,27 @@ class ShardServer:
                         f"{self.role} serves part='full' only at its "
                         f"current generation {self.generation}, request "
                         f"wants {meta['gen']}")
-                st = self.index.mutable_state
+                # the index is read under the lock with its delta and
+                # tombstones: a fold's swap may replace ``self.index``
+                # while this search runs
+                index = self.index
+                st = index.mutable_state
                 snap = st.delta.snapshot() if st.delta.live_count else None
-                eng = (self._delta_engine(self.index, snap)
+                eng = (self._delta_engine(index, snap)
                        if snap is not None else None)
                 tombs = np.asarray(sorted(st.main_tombstones), np.int64)
                 applied = self.applied_seq()
+                gen, term = self.generation, self.term()
             # self-slack: the caller budgeted overfetch from ITS dead-id
             # view, which cannot know kills this node applied that the
             # caller has not seen acked — deepen the fetch by our own
             # tombstone count so dropping them can never truncate below
             # the requested k (overfetch depth cannot change the merged
             # top-k, only guarantee it)
-            n = self.index.engine.arrays.num_points
+            n = index.engine.arrays.num_points
             h_eff = min(h + (ceil16(len(tombs)) if len(tombs) else 0), n)
-            ms, mi, _ = self.index.engine.search(qd, qv, qe, h=h_eff,
-                                                 alpha=alpha, beta=beta)
+            ms, mi, _ = index.engine.search(qd, qv, qe, h=h_eff,
+                                            alpha=alpha, beta=beta)
             out = {"ms": to_numpy(ms),
                    "mi": np.asarray(st.id_map)[to_numpy(mi)],
                    "main_tombstones": tombs}
@@ -517,8 +554,7 @@ class ShardServer:
                 ds, di, _ = eng.search(qd, qv, qe, h=snap.capacity,
                                        alpha=alpha, beta=beta)
                 out["ds"], out["di"] = to_numpy(ds), snap.ids[to_numpy(di)]
-            rmeta = {"gen": self.generation, "applied_seq": applied,
-                     "term": self.term(),
+            rmeta = {"gen": gen, "applied_seq": applied, "term": term,
                      "delta_live": snap.live if snap is not None else 0}
         else:
             raise ValueError(f"unknown search part {part!r}")
@@ -592,7 +628,7 @@ class ShardServer:
                             arrays["indptr"]),
                            shape=tuple(np.asarray(arrays["shape"])))
         ids = arrays["ids"] if "ids" in arrays else None
-        with self._lock:
+        with self._mut_lock, self._lock:
             self.durability.ensure_ok()
             st = self.index.mutable_state
             before = set(st.main_tombstones)
@@ -602,9 +638,9 @@ class ShardServer:
             main_killed = sorted(st.main_tombstones - before)
             delta_live = st.delta.live_count
             self._state_epoch += 1
-            epoch, term = self._state_epoch, self.term()
+            gen, epoch, term = self.generation, self._state_epoch, self.term()
         self.durability.sync(seq)                # group-commit ack
-        return ({"seq": seq, "gen": self.generation, "epoch": epoch,
+        return ({"seq": seq, "gen": gen, "epoch": epoch,
                  "term": term, "delta_live": delta_live},
                 {"ids": np.asarray(assigned, np.int64),
                  "main_killed": np.asarray(main_killed, np.int64)})
@@ -612,7 +648,7 @@ class ShardServer:
     def _op_delete(self, meta, arrays):
         self._ensure_primary()
         req = np.atleast_1d(np.asarray(arrays["ids"], np.int64))
-        with self._lock:
+        with self._mut_lock, self._lock:
             self.durability.ensure_ok()
             st = self.index.mutable_state
             before = set(st.main_tombstones)
@@ -627,28 +663,41 @@ class ShardServer:
             delta_live = st.delta.live_count
             if killed:
                 self._state_epoch += 1
-            epoch, term = self._state_epoch, self.term()
+            gen, epoch, term = self.generation, self._state_epoch, self.term()
         if seq is not None:
             self.durability.sync(seq)
-        return ({"seq": seq, "gen": self.generation, "killed": killed,
+        return ({"seq": seq, "gen": gen, "killed": killed,
                  "epoch": epoch, "term": term, "delta_live": delta_live},
                 {"killed_ids": np.asarray(sorted(was_live), np.int64),
                  "main_killed": np.asarray(main_killed, np.int64)})
 
     def _op_compact(self, meta, arrays):
+        """Fold the delta and tombstones into generation g + 1, cut it as a
+        durable checkpoint, then swap it in.  The fold and the checkpoint
+        run off ``_lock`` (as ``QueryService.compact`` runs off its serving
+        lock): searches, ``info`` and resyncs go on reading generation g
+        and its delta meanwhile, and flip at the swap, one critical
+        section.  Mutations wait on ``_mut_lock`` for the whole fold, so
+        none lands between the fold and the swap and none is lost."""
         retrain = meta.get("retrain")
         self._ensure_primary()
-        with self._lock:
+        with self._mut_lock:
             self.durability.ensure_ok()
+            t0 = time.perf_counter()
             new_index = self.index.compact(retrain=retrain)
+            t1 = time.perf_counter()
             self.durability.checkpoint(new_index)
-            self._prev_index = (self.generation, self.index)
-            self.index = new_index
-            self.generation += 1
-            self._delta_engine_cache.clear()
-            self._state_epoch += 1
-            return ({"gen": self.generation,
-                     "epoch": self._state_epoch, "term": self.term(),
+            self.stages_s = {"fold": t1 - t0,
+                             "checkpoint": time.perf_counter() - t1}
+            self._hold("fold")
+            with self._lock:
+                self._prev_index = (self.generation, self.index)
+                self.index = new_index
+                self.generation += 1
+                self._delta_engine_cache.clear()
+                self._state_epoch += 1
+                gen, epoch = self.generation, self._state_epoch
+            return ({"gen": gen, "epoch": epoch, "term": self.term(),
                      "num_points": new_index.engine.arrays.num_points,
                      "d_active": new_index.engine.arrays.d_active,
                      "next_seq": self.durability.wal.next_seq},
@@ -714,31 +763,63 @@ class ShardServer:
         return {}, {"data": np.frombuffer(data, np.uint8)}
 
     def _op_reload(self, meta, arrays):
+        """Load the primary's post-compaction store.  The fetch and the
+        load run off ``_lock``, into a slice of a new generation (scorer)
+        or a store directory of its own (replica); searches, ``status``
+        and ``info`` go on reading the old generation meanwhile, and the
+        swap is one critical section.  A replica promoted while it loaded
+        keeps its store, log and term: the swap checks the role again
+        under the lock and refuses (``_op_promote`` takes only ``_lock``),
+        and a load that a later one has overtaken is dropped."""
         gen = int(meta["gen"])
-        if self.role == "scorer":
-            self._load_slice(gen)
-        elif self.role == "replica":
-            # re-bootstrap onto the primary's post-compaction store: the
-            # old local store describes a generation that no longer takes
-            # writes, so wipe it and fetch fresh, then resume shipping
-            # from the new snapshot's replay horizon
-            self._ship_paused.set()      # quiesce the tail loop first
-            with self._lock:
+        if self.role == "primary":
+            raise ValueError("primary does not reload; it compacts")
+        with self._reload_lock:
+            if self.role == "scorer":
+                self._load_slice(gen)
+                return {"gen": self.generation}, {}
+            return self._reload_replica(gen)
+
+    def _reload_replica(self, gen: int):
+        # re-bootstrap onto the primary's post-compaction store: the old
+        # local store describes a generation that no longer takes writes,
+        # so it is replaced by a fresh fetch, and shipping resumes from
+        # the new snapshot's replay horizon
+        self._ship_paused.set()          # quiesce the tail loop first
+        fresh, old = f"{self.store}.next", f"{self.store}.old"
+        for litter in (fresh, old):      # of a reload cut short
+            shutil.rmtree(litter, ignore_errors=True)
+        t0 = time.perf_counter()
+        self._fetch_store(fresh)
+        t1 = time.perf_counter()
+        rec = persist.recover(fresh, backend=self.backend,
+                              metrics=self.obs.metrics, device=self.device)
+        rec.durability.close()
+        self.stages_s = {"fetch": t1 - t0,
+                         "recover": time.perf_counter() - t1}
+        self._hold("reload")
+        with self._lock:
+            keep = self.role == "replica" and self.generation < gen
+            if keep:
                 self.durability.close()
-                shutil.rmtree(self.store)
-                self._fetch_store(self.store)
-                rec = persist.recover(self.store, backend=self.backend,
-                                      metrics=self.obs.metrics,
-                                      device=self.device)
-                self.index, self.durability = rec.index, rec.durability
+                os.rename(self.store, old)
+                os.rename(fresh, self.store)
+                self.durability = persist.reopen(self.store,
+                                                 metrics=self.obs.metrics)
+                self.index = rec.index
                 self._applied_seq = self.durability.wal.next_seq - 1
                 self.generation = gen
                 self._delta_engine_cache.clear()
                 self._state_epoch += 1
-            self._ship_paused.clear()
-        else:
-            raise ValueError("primary does not reload; it compacts")
-        return {"gen": self.generation}, {}
+            role, have = self.role, self.generation
+        if not keep:
+            release_index_arrays(rec.index.engine.arrays)
+        shutil.rmtree(old if keep else fresh)
+        if role != "replica":
+            raise ValueError(f"promoted to {role} during its reload to "
+                             f"generation {gen}; it keeps its own store")
+        self._ship_paused.clear()
+        return {"gen": have}, {}
 
     def _op_status(self, meta, arrays):
         out = {"role": self.role, "gen": self.generation,
@@ -776,7 +857,25 @@ class ShardServer:
                     {"cols_global_ids": np.asarray(idx.cols.global_ids),
                      "main_tombstones": md, "fully_deleted": fd})
 
+    def _hold(self, step: str) -> None:
+        """Wait here while ``hold_<step>`` is armed, until
+        ``release_<step>`` (at most ``HOLD_LIMIT_S``): a fold or a reload
+        made as long as a test needs."""
+        held = self._holds.get(step)
+        if held is None:
+            return
+        self._holding.add(step)
+        try:
+            held.wait(HOLD_LIMIT_S)
+        finally:
+            self._holding.discard(step)
+
     def _op_fault(self, meta, arrays):
+        """Fault injection: ``pause_shipping`` / ``resume_shipping``
+        (replica), ``corrupt_next`` / ``close_next`` (the next reply),
+        and, in the port's nodes only, ``hold_fold`` / ``hold_reload``:
+        the primary's next fold and a follower's next reload wait before
+        their swap, until ``release_fold`` / ``release_reload``."""
         mode = meta["mode"]
         if mode == "pause_shipping":
             self._ship_paused.set()
@@ -784,6 +883,12 @@ class ShardServer:
             self._ship_paused.clear()
         elif mode in ("corrupt_next", "close_next"):
             self._faults.add(mode)
+        elif mode in ("hold_fold", "hold_reload"):
+            self._holds[mode.partition("_")[2]] = threading.Event()
+        elif mode in ("release_fold", "release_reload"):
+            held = self._holds.pop(mode.partition("_")[2], None)
+            if held is not None:
+                held.set()
         else:
             raise ValueError(f"unknown fault mode {mode!r}")
         return {"mode": mode}, {}
@@ -799,8 +904,10 @@ class ShardServer:
         this process's kernel launches and plain-version calls by kernel,
         the p50 / p99 of its latest score seconds, the kernels it compiled
         at bootstrap (none when it found them built), its bootstrap
-        seconds and the snapshot bytes it fetched, the generations a
-        scorer holds and, on the card, ``torch.cuda.memory_allocated`` /
+        seconds, the seconds by stage of its latest fold or store load, the
+        snapshot bytes it fetched, the generations a scorer holds, the held
+        steps waiting now (``holding``) and, on the card,
+        ``torch.cuda.memory_allocated`` /
         ``max_memory_allocated`` beside the baseline the process held
         before it loaded any index (``_warm_device``)."""
         with self._lock:
@@ -814,12 +921,14 @@ class ShardServer:
                "plain_calls": dict(PLAIN_CALLS),
                "kernels_built": list(self.kernel_build.get("built", [])),
                "bootstrap_s": self.bootstrap_s,
+               "stages_s": self.stages_s,
                "store_bytes_fetched": self.fetched_bytes,
                "score_s_p50": (float(np.percentile(samples, 50))
                                if samples.size else None),
                "score_s_p99": (float(np.percentile(samples, 99))
                                if samples.size else None),
-               "generations": gens}
+               "generations": gens,
+               "holding": sorted(self._holding)}
         if self.device.type == "cuda":
             out["baseline_allocated"] = self.baseline_allocated
             out["memory_allocated"] = torch.cuda.memory_allocated(

@@ -1,7 +1,7 @@
 """Shared helpers of the port tests (tests/test_torch_*.py): carrying a JAX
 index across to the port, the tie-aware comparison of top-k results, a
 test worker's share of torch's threads and its environment, and what the
-cluster tests share.
+cluster tests share (fake nodes on local sockets among it).
 
 XLA and PyTorch sum in different orders, so scores agree only within a
 tolerance, and two candidates whose reference scores lie within that
@@ -10,6 +10,9 @@ swaps and nothing else."""
 
 import contextlib
 import os
+import socket
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -123,8 +126,6 @@ CLUSTER_TIMEOUT_S = 30.0       # every socket wait of a cluster test
 def wait_replica_seq(port: int, seq: int, *, timeout=CLUSTER_TIMEOUT_S):
     """Poll a replica's ``status`` until it has applied ``seq``; returns
     the status meta.  Fails after ``timeout`` seconds."""
-    import time
-
     from repro_torch.serve.cluster import ShardClient, wait_ready
     rc = ShardClient("127.0.0.1", port, timeout=timeout)
     try:
@@ -148,3 +149,103 @@ def one_thread_nodes():
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("OMP_NUM_THREADS", "1")
         yield
+
+
+# -- fake cluster nodes (tests/test_torch_cluster_stale.py, _flip.py) ---------
+
+LIMIT_S = 10.0           # a fake-node case's own time limit
+
+
+def started(fn):
+    """Run ``fn`` in a thread of its own; returns ``(thread, box)`` for
+    ``finished``."""
+    box = {}
+
+    def run():
+        try:
+            box["value"] = fn()
+        except BaseException as e:          # noqa: BLE001 - re-raised later
+            box["error"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    return t, box
+
+
+def finished(t, box, limit=LIMIT_S):
+    """Fail unless the thread of ``started`` ends within ``limit`` seconds.
+    Returns its result, re-raises its exception."""
+    t.join(limit)
+    assert not t.is_alive(), f"no answer within {limit} s: a wait hangs"
+    if "error" in box:
+        raise box["error"]
+    return box.get("value")
+
+
+def bounded(fn, limit=LIMIT_S):
+    """Run ``fn`` in a thread; fail unless it returns within ``limit``
+    seconds.  Returns its result, re-raises its exception."""
+    return finished(*started(fn), limit=limit)
+
+
+class FakeNode:
+    """A shard node on a local socket: ``handle(cmd, meta, arrays)``
+    returns ``(op, meta, arrays, delay_s)``, or None for no reply at all.
+    Requests on one connection are answered in order, as the real server
+    answers them; every request is logged as ``(cmd, meta)``."""
+
+    def __init__(self, handle):
+        self.handle = handle
+        self.log = []
+        self._srv = socket.create_server(("127.0.0.1", 0))
+        self._srv.settimeout(0.1)
+        self._stop = threading.Event()
+        self.port = self._srv.getsockname()[1]
+        threading.Thread(target=self._accept, daemon=True).start()
+
+    @property
+    def addr(self) -> str:
+        return f"127.0.0.1:{self.port}"
+
+    def _accept(self):
+        while not self._stop.is_set():
+            try:
+                conn, _ = self._srv.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            threading.Thread(target=self._serve, args=(conn,),
+                             daemon=True).start()
+
+    def _serve(self, conn):
+        from repro_torch.serve.cluster.protocol import recv_msg, send_msg
+        with conn:
+            while not self._stop.is_set():
+                try:
+                    _, meta, arrays = recv_msg(conn)
+                except (ConnectionError, OSError):
+                    return
+                cmd = meta.pop("cmd")
+                self.log.append((cmd, meta))
+                reply = self.handle(cmd, meta, arrays)
+                if reply is None:
+                    continue
+                op, rmeta, rarrays, delay = reply
+                time.sleep(delay)
+                try:
+                    send_msg(conn, "reply", rmeta, rarrays, op=op)
+                except (ConnectionError, OSError):
+                    return
+
+    def close(self):
+        self._stop.set()
+        self._srv.close()
+
+
+def stale(role, held, want):
+    """The reply a node gives a generation it does not hold."""
+    from repro_torch.serve.cluster.protocol import MSG_ERROR
+    return (MSG_ERROR, {"error": f"StaleGenerationError: {role} holds "
+                                 f"generation {held}, request wants {want}",
+                        "kind": "StaleGenerationError"}, {}, 0.0)

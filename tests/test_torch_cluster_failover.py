@@ -4,13 +4,17 @@ tests/test_cluster_failover.py, on the CPU): a scorer killed -9 is served
 by a caught-up replica bit for bit, or refused with ``DegradedResultError``
 when none is left, never as a shortened top-k; ``failover()`` promotes a
 caught-up replica and refuses a lagging one; a deposed primary's acks are
-refused with ``StaleTermError``.  The tests are chained on two clusters in
-the order the faults allow; every result is held to the port's in-process
-``QueryService`` bit for bit."""
+refused with ``StaleTermError``; a replica promoted while its reload of
+a compaction waits keeps its own store, log and term.  The tests are
+chained on two clusters in the order the faults allow; every result is
+held to the port's in-process ``QueryService`` bit for bit."""
+
+import time
 
 import numpy as np
 import pytest
-from _torch_port_helpers import CLUSTER_TIMEOUT_S, wait_replica_seq
+from _torch_port_helpers import (CLUSTER_TIMEOUT_S, finished, started,
+                                 wait_replica_seq)
 from _torch_port_helpers import one_thread_nodes  # noqa: F401
 
 from repro_torch.core.hybrid import HybridIndex, HybridIndexParams
@@ -181,6 +185,53 @@ def test_lagging_replica_refused_and_zombie_fenced(tmp_path):
             with pytest.raises(FailoverError, match="lose acked"):
                 r1.failover()
         finally:
+            r1.close()
+            comp.close()
+
+
+def test_promotion_during_a_held_reload_keeps_the_new_primary(tmp_path):
+    """The replica's reload of a compaction held before its swap
+    (``hold_reload``, a port-only fault mode) while the replica is
+    promoted under term 2 and acks a write: at the release the reload is
+    refused, and the promoted primary keeps its generation, term, log and
+    writes, and takes more at its term."""
+    comp = comparator()
+    with LocalCluster.launch(build(), str(tmp_path / "c"), num_scorers=1,
+                             num_replicas=1, device="cpu") as cluster:
+        r1 = cluster.router(h=8, timeout=CLUSTER_TIMEOUT_S)
+        port = cluster.replicas[0].port
+        rc = ShardClient("127.0.0.1", port, timeout=CLUSTER_TIMEOUT_S)
+        r2 = None
+        try:
+            mirrored_insert(r1, comp, N0)
+            wait_replica_seq(port, r1._last_seq)
+            rc.call("fault", {"mode": "hold_reload"})
+            flip = started(r1.compact)
+            deadline = time.monotonic() + CLUSTER_TIMEOUT_S
+            while rc.call("stats")[0]["holding"] != ["reload"]:
+                assert time.monotonic() < deadline, "never a held reload"
+                time.sleep(0.02)
+            rc.call("promote", {"sealed_seq": r1._last_seq, "new_term": 2})
+            r2 = ClusterRouter(f"127.0.0.1:{port}",
+                               [s.addr for s in cluster.scorers], [], h=8,
+                               timeout=CLUSTER_TIMEOUT_S)
+            mirrored_insert(r2, comp, N0 + 1)
+            acked = r2._last_seq
+            rc.call("fault", {"mode": "release_reload"})
+            with pytest.raises(RemoteError, match="promoted"):
+                finished(*flip, limit=CLUSTER_TIMEOUT_S)
+            st = rc.call("status")[0]
+            assert (st["role"], st["gen"], st["term"]) == ("primary", 1, 2)
+            assert st["applied_seq"] == acked and st["delta_live"] == 2
+            mirrored_insert(r2, comp, N0 + 2)      # acked at term 2
+            assert r2.term == 2 and r2._last_seq == acked + 1
+            for q in range(NQ):                    # the direct read
+                search_equal(r2, comp, rows=slice(q, q + 1))
+        finally:
+            rc.call("fault", {"mode": "release_reload"})
+            rc.close()
+            if r2 is not None:
+                r2.close()
             r1.close()
             comp.close()
 

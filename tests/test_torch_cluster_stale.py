@@ -22,111 +22,17 @@ them, so each case is deterministic and takes well under a second:
 Every case runs in a thread joined under its own time limit, so a
 regression fails here and does not hang the run."""
 
-import socket
-import threading
 import time
 
 import numpy as np
 import pytest
+from _torch_port_helpers import (LIMIT_S, FakeNode, bounded, finished,
+                                 stale, started)
 
 from repro_torch.serve.cluster import ClusterRouter, ShardClient
-from repro_torch.serve.cluster.protocol import (MSG_ERROR, MSG_RESPONSE,
-                                                recv_msg, send_msg)
+from repro_torch.serve.cluster.protocol import MSG_RESPONSE
 
-LIMIT_S = 10.0           # each case's own time limit
 N_ROWS, H, QN = 64, 4, 3
-
-
-def started(fn):
-    """Run ``fn`` in a thread of its own; returns ``(thread, box)`` for
-    ``finished``."""
-    box = {}
-
-    def run():
-        try:
-            box["value"] = fn()
-        except BaseException as e:          # noqa: BLE001 - re-raised later
-            box["error"] = e
-
-    t = threading.Thread(target=run, daemon=True)
-    t.start()
-    return t, box
-
-
-def finished(t, box, limit=LIMIT_S):
-    """Fail unless the thread of ``started`` ends within ``limit`` seconds.
-    Returns its result, re-raises its exception."""
-    t.join(limit)
-    assert not t.is_alive(), f"no answer within {limit} s: a wait hangs"
-    if "error" in box:
-        raise box["error"]
-    return box.get("value")
-
-
-def bounded(fn, limit=LIMIT_S):
-    """Run ``fn`` in a thread; fail unless it returns within ``limit``
-    seconds.  Returns its result, re-raises its exception."""
-    return finished(*started(fn), limit=limit)
-
-
-class FakeNode:
-    """A shard node on a local socket: ``handle(cmd, meta, arrays)``
-    returns ``(op, meta, arrays, delay_s)``, or None for no reply at all.
-    Requests on one connection are answered in order, as the real server
-    answers them; every request is logged as ``(cmd, meta)``."""
-
-    def __init__(self, handle):
-        self.handle = handle
-        self.log = []
-        self._srv = socket.create_server(("127.0.0.1", 0))
-        self._srv.settimeout(0.1)
-        self._stop = threading.Event()
-        self.port = self._srv.getsockname()[1]
-        threading.Thread(target=self._accept, daemon=True).start()
-
-    @property
-    def addr(self) -> str:
-        return f"127.0.0.1:{self.port}"
-
-    def _accept(self):
-        while not self._stop.is_set():
-            try:
-                conn, _ = self._srv.accept()
-            except socket.timeout:
-                continue
-            except OSError:
-                return
-            threading.Thread(target=self._serve, args=(conn,),
-                             daemon=True).start()
-
-    def _serve(self, conn):
-        with conn:
-            while not self._stop.is_set():
-                try:
-                    _, meta, arrays = recv_msg(conn)
-                except (ConnectionError, OSError):
-                    return
-                cmd = meta.pop("cmd")
-                self.log.append((cmd, meta))
-                reply = self.handle(cmd, meta, arrays)
-                if reply is None:
-                    continue
-                op, rmeta, rarrays, delay = reply
-                time.sleep(delay)
-                try:
-                    send_msg(conn, "reply", rmeta, rarrays, op=op)
-                except (ConnectionError, OSError):
-                    return
-
-    def close(self):
-        self._stop.set()
-        self._srv.close()
-
-
-def stale(role, held, want):
-    return (MSG_ERROR, {"error": f"StaleGenerationError: {role} holds "
-                                 f"generation {held}, request wants {want}",
-                        "kind": "StaleGenerationError"}, {}, 0.0)
 
 
 class Cluster:

@@ -1,8 +1,9 @@
 """The cluster wire format of the port (repro_torch.serve.cluster.protocol)
 against the JAX package's, in-process: ``build_frame`` gives the same bytes
 for the same meta and arrays, each package's ``recv_msg`` decodes the
-other's frames to the same arrays (dtypes included), and both refuse a
-torn, crc-corrupted or bad-magic frame with ``TornFrameError``."""
+other's frames to the same arrays (dtypes included; a frame of several
+MB too, which the port sends a part at a time), and both refuse a torn,
+crc-corrupted or bad-magic frame with ``TornFrameError``."""
 
 import socket
 import threading
@@ -34,11 +35,15 @@ def _arrays(case: str) -> dict:
                   "0:ids": np.asarray([[3, -1]], np.int64),
                   "1:q_vals": np.ones((2, 3), np.float32)},
         "none": {},
+        # past protocol._JOIN_BELOW: sent a part at a time, the f32 block
+        # at an offset not aligned for it
+        "large": {"blob": np.frombuffer(rng.bytes(3 << 20), np.uint8),
+                  "f32": rng.standard_normal((600, 300)).astype(np.float32)},
     }[case]
 
 
 CASES = ["f32", "i64", "i32", "u8", "empty", "non_contiguous", "zero_d",
-         "mixed", "none"]
+         "mixed", "none", "large"]
 META = {"part": "main", "gen": 3, "h": 20, "alpha": 25, "beta": 6,
         "trace": {"tid": "ab", "sid": "cd"}, "subs": [{"x": 1.5}, {}]}
 
@@ -65,10 +70,18 @@ def _pair():
 def test_recv_decodes_the_other_package(sender, receiver, case):
     arrays = _arrays(case)
     a, b = _pair()
+    sent = {}
+
+    def send():        # in a thread: a large frame outgrows the buffers
+        sent["n"] = PACKAGES[sender].send_msg(
+            a, "reply", {"gen": 2}, arrays, op=PACKAGES[sender].MSG_RESPONSE)
+    t = threading.Thread(target=send, daemon=True)
     try:
-        n = PACKAGES[sender].send_msg(a, "reply", {"gen": 2}, arrays,
-                                      op=PACKAGES[sender].MSG_RESPONSE)
+        t.start()
         op, meta, got = PACKAGES[receiver].recv_msg(b)
+        t.join(_RECV_TIMEOUT_S)
+        assert not t.is_alive()
+        n = sent["n"]
     finally:
         a.close()
         b.close()
@@ -83,6 +96,8 @@ def test_recv_decodes_the_other_package(sender, receiver, case):
         v = np.ascontiguousarray(v)
         assert got[k].dtype == v.dtype and got[k].shape == v.shape
         np.testing.assert_array_equal(got[k], v)
+        if receiver == "torch":     # views of the frame only where aligned
+            assert got[k].flags.writeable and got[k].flags.aligned
 
 
 def _torn(sock, frame: bytes) -> None:
