@@ -3606,8 +3606,12 @@ def run_launch():
             res["table"] = table
         return name, res
 
-    # chains of children: a chain runs in order, chains run at once
+    # chains of children: a chain runs in order, chains run at once; the
+    # LM dry run (its memory reckoned on meta, the host alone) first, beside
+    # the card's children
     small = [
+        [("dryrun_stablelm", dryrun, ["--arch", "stablelm-1.6b", "--shape",
+                                      "train_4k", "--out", lm_rows])],
         [("plain", serve, ["--retrieval"])],
         [("persist", serve, ["--retrieval", "--persist-dir", store]),
          ("restore", serve, ["--retrieval", "--restore", store])],
@@ -3620,9 +3624,7 @@ def run_launch():
           ["--arch", "stablelm-1.6b-smoke", "--steps", "4", "--device",
            "cuda", "--ckpt", os.path.join(tmp, "train")])],
         [("lm_qwen2_7b", serve, ["--arch", "qwen2-7b", "--pq-head",
-                                 "--tokens", "8"])],
-        [("dryrun_stablelm", dryrun, ["--arch", "stablelm-1.6b", "--shape",
-                                      "train_4k", "--out", lm_rows])]]
+                                 "--tokens", "8"])]]
     large = [
         ("lm_qwen2_moe", serve, ["--arch", "qwen2-moe-a2.7b", "--pq-head",
                                  "--tokens", "8"]),
@@ -4124,14 +4126,92 @@ def moe_drop_share(torch, sess) -> dict:
             "capacity_factor": sess.model.cfg.capacity_factor}
 
 
-def decode_cell(torch, cfg, *, pq: bool, check_cfg=None) -> tuple:
+# ---------------------------------------------------------------------------
+# the dry run's memory proof held to the card: a step's reckoned
+# temp + output - alias (launch.dryrun.reckon_memory on a one-device mesh)
+# against max_memory_allocated() - memory_allocated() around the step
+# ---------------------------------------------------------------------------
+
+MEM_BAND = (0.85, 1.15)     # measured / reckoned
+def step_peak(torch, fn, *args) -> int:
+    """What one call of ``fn(*args)`` adds at its peak to the memory
+    allocated before it, its result included."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    del out
+    return peak
+
+
+def memory_reading(mem: dict, measured: int, reckon_s: float,
+                   hidden: dict | None = None) -> dict:
+    """One step's reckoned ``temp + output - alias`` beside its measured
+    peak increase (and, from ``tools/memory_probe.py``, the ops that held
+    buffers of their own)."""
+    reckoned = mem["mem_temp"] + mem["mem_output"] - mem["mem_alias"]
+    out = {"reckoned": reckoned, "measured": measured,
+           "ratio": measured / reckoned, **mem, "reckon_seconds": reckon_s}
+    if hidden is not None:
+        out["hidden_buffers"] = hidden
+    return out
+
+
+def check_memory_band(phase: str, readings: dict) -> None:
+    check(all(MEM_BAND[0] <= r["ratio"] <= MEM_BAND[1]
+              for r in readings.values()),
+          f"{phase}: measured / reckoned peak increase outside {MEM_BAND}: "
+          + json.dumps({k: {f: r[f] for f in ("reckoned", "measured",
+                                              "ratio", "hidden_buffers")
+                            if f in r}
+                        for k, r in readings.items()}))
+
+
+def decode_memory_proof(torch, model, cfg, params, prompts,
+                        hidden=None) -> dict:
+    """The dry run's decode cell (f32 params, the config's bf16 compute, an
+    empty state of ``DECODE_MAX_LEN`` slots) reckoned at B = 1 and 32 on a
+    one-device mesh, against one ``decode_step`` on ``params`` (the f32
+    tree on the card) from a warmed state; fails outside ``MEM_BAND``.
+    ``hidden(torch, fn, *args)``, where given, names the ops of one more
+    step that held buffers of their own."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.dryrun import reckon_memory
+    from repro_torch.launch.mesh import make_test_mesh
+
+    readings = {}
+    for b in DECODE_BATCHES:
+        t0 = time.perf_counter()
+        mem = reckon_memory(cfg, ShapeConfig(f"decode_b{b}", DECODE_MAX_LEN,
+                                             b, "decode"),
+                            make_test_mesh((1, 1)))
+        reckon_s = time.perf_counter() - t0
+        state = model.init_decode_state(params, b, DECODE_MAX_LEN)
+        token = prompts[b][:, 0].to(torch.int32)
+        model.decode_step(params, state, token)          # warm
+        measured = step_peak(torch, model.decode_step, params, state, token)
+        found = (hidden(torch, model.decode_step, params, state, token)
+                 if hidden else None)
+        del state
+        readings[f"B{b}"] = memory_reading(mem, measured, reckon_s, found)
+    check_memory_band(f"{cfg.name} decode", readings)
+    return {"readings": readings, "band": MEM_BAND,
+            "mesh": "1x1", "nvidia_smi": smi_line()}
+
+
+def decode_cell(torch, cfg, *, pq: bool, check_cfg=None,
+                memory_proof: bool = False) -> tuple:
     """One model's decode loop at ``cfg``'s width and depth, random weights
     from ``Model.init`` with a seeded ``torch.Generator`` on the card, in
     the config's bf16 from ``ServeSession.create`` on.  Each session is
     reached without holding two trees: the seeded f32 tree is handed over
     (``donate=True``) and cast in place.  First decode against forward on
     the f32 tree in f32 (on ``check_cfg``'s model when given: MoE at a
-    raised capacity_factor), within 1e-4; then the main path, as a user
+    raised capacity_factor), within 1e-4, and with ``memory_proof`` the
+    dry run's reckoning held to one step on it (``decode_memory_proof``);
+    then the main path, as a user
     calls it: ``greedy_generate(donate=True)`` at B = 1 and 32 with the
     exact head and, with ``pq``, the PQ head (``cuda``: K1 at K = d / 2 a
     step), each on the seeded tree drawn anew; then one session (its PQ
@@ -4185,6 +4265,8 @@ def decode_cell(torch, cfg, *, pq: bool, check_cfg=None) -> tuple:
     rel_f32 = decode_vs_forward(torch, Model(f32_cfg), params, g)
     check(rel_f32 < DECODE_REL_F32,
           f"{cfg.name} (f32): decode vs forward rel {rel_f32}")
+    mem_proof = (decode_memory_proof(torch, model, cfg, params, prompts)
+                 if memory_proof else None)
 
     # the main path, as a user calls it: greedy_generate on the f32 tree,
     # handed over, every count at zero just before each call
@@ -4302,6 +4384,8 @@ def decode_cell(torch, cfg, *, pq: bool, check_cfg=None) -> tuple:
               "session_device_bytes": tensor_bytes(sess.params)
               + (tensor_bytes(sess.pq_params) if pq else 0),
               "by_batch": by_b}
+    if mem_proof is not None:
+        fields["memory_proof"] = mem_proof
     if flips is not None:
         fields["route_flips_bf16"] = flips
     if pq:
@@ -4324,7 +4408,7 @@ def run_lm_decode(torch) -> dict:
     torch.cuda.reset_peak_memory_stats()
     smokes = smoke_decode_rels(torch, DENSE_SMOKES)
     fields, launches, _ = decode_cell(torch, get_config(DECODE_ARCH),
-                                      pq=True)
+                                      pq=True, memory_proof=True)
     peak = torch.cuda.max_memory_allocated()
     check(peak < 70e9, f"lm_decode max_memory_allocated {peak} >= 70 GB")
     emit("lm_decode", **fields, prompt=DECODE_PROMPT,
@@ -4665,13 +4749,55 @@ def microbatch_twin(torch, cfg, ocfg, params, batch) -> dict:
             "max_memory_allocated": torch.cuda.max_memory_allocated()}
 
 
+def train_memory_proof(torch, cfg, ocfg, params, batch,
+                       phase_peak: int | None, hidden=None) -> dict:
+    """The dry run's train cell at B = ``TRAIN_B``, S = ``TRAIN_S`` on a
+    one-device mesh, reckoned at microbatches 1 and 2 (the twin's), against
+    one step of each from a warmed state (fresh moments, one step run
+    first); fails outside ``MEM_BAND``.  The reckoned ``bytes_per_device``
+    stands beside the phase's own peak (``phase_peak``: the trainer's
+    steps).  ``hidden`` as in ``decode_memory_proof``."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.dryrun import reckon_memory
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import make_train_step
+
+    shape = ShapeConfig("train_b8_s512", TRAIN_S, TRAIN_B, "train")
+    readings = {}
+    for mb in (1, 2):
+        t0 = time.perf_counter()
+        mem = reckon_memory(cfg, shape, make_test_mesh((1, 1)),
+                            microbatches=mb, opt_cfg=ocfg)
+        reckon_s = time.perf_counter() - t0
+        step = make_train_step(Model(cfg), ocfg, mb,
+                               cast_params_bf16=cfg.params_bf16_cast)
+        opt = adamw_init(params, ocfg)
+        step(params, opt, batch)                         # warm
+        measured = step_peak(torch, step, params, opt, batch)
+        found = hidden(torch, step, params, opt, batch) if hidden else None
+        del opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        readings[f"microbatches_{mb}"] = memory_reading(mem, measured,
+                                                        reckon_s, found)
+    check_memory_band("train", readings)
+    return {"readings": readings, "band": MEM_BAND, "mesh": "1x1",
+            "reckoned_bytes_per_device":
+                readings["microbatches_1"]["bytes_per_device"],
+            "phase_max_memory_allocated": phase_peak,
+            "nvidia_smi": smi_line()}
+
+
 def run_train(torch) -> None:
     """The training stack on the card: stablelm-1.6b at full width and depth
     (1.645B params; bf16 compute, f32 master weights and moments, remat as
     its config sets) through ``Trainer`` for ``TRAIN_STEPS`` steps at B = 8,
     S = 512 from a seeded ``Model.init``; one more step under
     torch.profiler (launches and busy share a step) and one under
-    ``set_sync_debug_mode("error")``; ``microbatch_twin``; the resume check
+    ``set_sync_debug_mode("error")``; ``microbatch_twin``; the dry run's
+    memory proof held to the card (``train_memory_proof``); the resume check
     in a process of its own (``train_resume_check``); the six family
     smokes' f32 steps on the card against the CPU
     (``family_steps_vs_cpu``).  Fails on a non-finite loss or grad norm, a
@@ -4762,6 +4888,8 @@ def run_train(torch) -> None:
     check(twin["max_memory_allocated"] < TRAIN_PEAK_BOUND,
           f"train: the microbatch twin's max_memory_allocated "
           f"{twin['max_memory_allocated']} >= 70 GB")
+    mem_proof = train_memory_proof(torch, cfg, ocfg, params,
+                                   synthetic_batch(dcfg, 0, "cuda"), peak)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4784,7 +4912,7 @@ def run_train(torch) -> None:
          peak_bound=TRAIN_PEAK_BOUND, flops_per_step=flops,
          mfu=flops / step_s / BF16_PEAK_FLOPS, mfu_params=matmul_params,
          accounting=accounting,
-         microbatch_twin=twin, resume=resume,
+         microbatch_twin=twin, memory_proof=mem_proof, resume=resume,
          families_card_vs_cpu=families,
          kernel_launches="none: the K1-K3 and B4 counts are unchanged by "
                          "the phase",

@@ -17,14 +17,16 @@ program, so an LM cell is reckoned instead (``lower_cell``):
     tensors at 1x and 2x the layer pattern's depth and extrapolated to the
     full depth as the reference does (a tail of remainder layers counted as
     a fraction of a repeat, as there);
-  * ``bytes_per_device`` holds the step's arguments only (params, the
-    AdamW moments, the batch or the decode state and token), each leaf's
-    share under the reference's specs on the mesh (``models.shardings``);
-    there are no compiled temporaries to read, so ``mem_temp`` is null and
-    the row says why;
-  * f32 moments, or bf16 ones where the arguments alone exceed ``HBM_FIT``
-    (the reference's second fallback); ``microbatches`` comes from
-    ``--fit-from`` or is 1.
+  * its memory is the reference's proof, ``temp + argument + output -
+    alias`` a device (``reckon_memory``): the arguments, the result and
+    its aliases at each leaf's share under the reference's specs on the
+    mesh (``models.shardings``), and the temporaries from the live set of
+    the port's own step at full depth (``roofline.mem_of``) on the model
+    of one device that ``MEM_TEMP_MODEL`` states;
+  * a train cell's microbatches and moments come from the reference's fit
+    search against ``HBM_FIT`` (doubling, the two-sample jump, the cap at
+    ``global_batch // data shards``, bf16 moments at the cap, and an
+    honest row where nothing fits); ``--fit-from`` seeds it.
 
 A cell that ``meta`` cannot count is a ``fail`` row with its error, as a
 cell the reference cannot compile is.
@@ -44,6 +46,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -57,16 +60,20 @@ from ..configs import SHAPES, get_config
 from ..data.pipeline import input_specs_for_shape
 from ..device import resolve_device
 from ..models import Model
-from ..models.shardings import (batch_pspecs, bytes_per_device, param_pspecs,
-                                state_pspecs, tree_pspecs)
+from ..models.common import DEFAULT_RULES, resolve_spec
+from ..models.layout import flatten, tree_map
+from ..models.shardings import (batch_pspecs, bytes_per_device, logits_pspec,
+                                param_pspecs, same_layout, shard_shape,
+                                state_out_pspecs, state_pspecs, tree_pspecs)
 from ..optim import AdamWConfig, adamw_init
-from ..roofline.analysis import (H100, cost_of, model_flops,
+from ..roofline.analysis import (H100, cost_of, mem_of, model_flops,
                                  roofline_from_cost)
 from ..train import make_train_step
 from .mesh import make_production_mesh
 
-__all__ = ["OPT_CFG", "HBM_BYTES", "HBM_FIT", "skip_reason", "input_specs",
-           "build_cell", "probe_costs", "lower_cell", "retrieval_shard",
+__all__ = ["OPT_CFG", "HBM_BYTES", "HBM_FIT", "MEM_TEMP_MODEL", "skip_reason",
+           "input_specs", "build_cell", "probe_costs", "local_config",
+           "local_shape", "reckon_memory", "lower_cell", "retrieval_shard",
            "shard_calls", "lower_retrieval", "main"]
 
 OPT_CFG = AdamWConfig()
@@ -74,9 +81,18 @@ OPT_CFG = AdamWConfig()
 HBM_BYTES = H100["hbm_bytes"]
 HBM_FIT = int(HBM_BYTES * 15.5 / 16)   # the reference's headroom share
 
-MEM_TEMP_REASON = ("not reckoned: the port compiles no program, so there "
-                   "are no compiled temporaries to read; bytes_per_device "
-                   "is the step's arguments")
+MEM_TEMP_MODEL = (
+    "the live set of the port's eager step at full depth on meta, each "
+    "storage rounded to the caching allocator's 512 B block: activations at "
+    "the per-device batch (global_batch over pod x data); heads, kv heads, "
+    "the MLP and MoE widths or the experts, the RG-LRU and SSD widths and "
+    "the vocabulary divided by 'model' where the reference's rules shard "
+    "them (local_config); the storages that come from a parameter (its "
+    "casts, its grad and the partial grads summed into it, the optimizer's "
+    "temporaries for it; roofline.mem_of's links, not shapes) at the "
+    "parameter's per-device share, every other storage whole; plus "
+    "one repeat's weights gathered along fsdp; a step of n > 2 microbatches "
+    "reckoned at its first two")
 
 
 def skip_reason(cfg, shape) -> str | None:
@@ -159,12 +175,200 @@ def probe_costs(cfg, shape, opt_cfg: AdamWConfig | None = None):
                  for base, two in zip(*counts))
 
 
+def local_config(cfg, mesh):
+    """``cfg`` at one device's share of each width that the reference's
+    rules shard over ``model`` (a width is cut where the first logical axis
+    of its weight that takes ``model`` carries it, and ``model`` divides it,
+    as ``resolve_spec`` decides): the kv heads, or else the query heads of
+    a group; the MLP width; the experts, or else the MoE width (the shared
+    experts' width is cut with the MoE width only); the RG-LRU width; the
+    SSD inner width and its heads (the SSD's B and C stay whole); the
+    vocabulary.  The model width and the head dim stay whole."""
+    m = mesh.shape.get("model", 1)
+    if m == 1:
+        return cfg
+
+    def cut(n: int) -> int:
+        return n // m if n >= m and n % m == 0 else n
+
+    ch = {"head_dim": cfg.resolved_head_dim, "d_ff": cut(cfg.d_ff),
+          "vocab_size": cut(cfg.vocab_size)}
+    kv, r = cfg.num_kv_heads, cfg.kv_repeat
+    if cut(kv * r) != kv * r:       # wq (d, kv heads, group, hd): kv heads
+        if cut(kv) != kv:
+            ch.update(num_kv_heads=kv // m, num_heads=cfg.num_heads // m)
+        elif cut(r) != r:
+            ch.update(kv_repeat=r // m, num_heads=cfg.num_heads // m)
+    elif cut(cfg.num_heads // (kv * r)) != cfg.num_heads // (kv * r):
+        ch["num_heads"] = cfg.num_heads // m          # else the group
+    if cfg.num_experts:
+        if cut(cfg.num_experts) != cfg.num_experts:
+            e = cut(cfg.num_experts)
+            ch.update(num_experts=e,
+                      num_experts_per_tok=min(cfg.num_experts_per_tok, e))
+        else:
+            ch["moe_d_ff"] = cut(cfg.moe_d_ff)
+    if "rglru" in Model(cfg).pattern:
+        ch["lru_width"] = cut(cfg.lru_width or cfg.d_model)
+    if "ssd" in Model(cfg).pattern:
+        d_in = cfg.ssm_expand * cfg.d_model
+        if cut(d_in) != d_in and (d_in // m) % cfg.ssm_headdim == 0:
+            expand = (d_in // m) / cfg.d_model
+            if expand * cfg.d_model != d_in // m:
+                raise ValueError(f"{cfg.name}: the SSD width {d_in // m} a "
+                                 f"device is no exact ssm_expand")
+            ch["ssm_expand"] = expand
+    return dataclasses.replace(cfg, **ch)
+
+
+def local_shape(shape, mesh):
+    """``shape`` at one device's batch: ``global_batch`` over the axes its
+    ``batch`` rule takes on ``mesh`` (``pod`` x ``data`` where they divide
+    it, as ``batch_pspecs``)."""
+    b = shape.global_batch
+    spec = resolve_spec(mesh, DEFAULT_RULES, ("batch",), (b,))
+    return dataclasses.replace(shape,
+                               global_batch=shard_shape((b,), spec, mesh)[0])
+
+
+def _zip_specs(tree, specs, like):
+    """(leaf of ``tree``, its spec, ``like``'s leaf at its place), walking
+    ``tree``'s containers; a spec that stands for a whole container (an
+    int8 moment block's) covers each leaf below it."""
+    if isinstance(tree, (dict, list, tuple)):
+        keys = tree.keys() if isinstance(tree, dict) else range(len(tree))
+        for k in keys:
+            sub = specs if isinstance(specs, tuple) else specs[k]
+            yield from _zip_specs(tree[k], sub, like[k])
+    else:
+        yield tree, specs, like
+
+
+def _param_shares(cell, local, mesh) -> list | None:
+    """``shares`` for ``mem_of``: each of the local step's parameters with
+    the share of its local bytes that one device holds under its spec on
+    the whole job's tree; None where every share is whole."""
+    params, lparams = cell.args[0], local.args[0]
+    shares = [(loc, math.prod(shard_shape(g.shape, spec, mesh))
+               / max(loc.numel(), 1))
+              for g, spec, loc in _zip_specs(
+                  params, param_pspecs(params, mesh), lparams)]
+    return None if all(f == 1.0 for _, f in shares) else shares
+
+
+def _gathered_repeat(cfg, shape, local, mesh) -> int:
+    """The bytes of one repeat's weights at their ``model`` share, as the
+    scan body of the reference's SPMD program gathers them along ``fsdp``
+    (bf16 where the train step casts them); 0 without an ``fsdp`` axis."""
+    fsdp = DEFAULT_RULES["fsdp"]
+    if mesh.shape.get(fsdp, 1) == 1:
+        return 0
+    params = local.args[0]
+    layers = ([p for pos in params["blocks"] for p in pos[:1]]
+              if params["blocks"] and params["blocks"][0] else
+              params["tail"][:1])
+    size = 2 if shape.kind == "train" and cfg.params_bf16_cast else None
+    return sum(t.numel() * (size or t.element_size())
+               for t in flatten(layers))
+
+
+def _leaf_out_bytes(leaf, like, spec, mesh) -> int:
+    if isinstance(leaf, torch.Tensor):
+        return (math.prod(shard_shape(like.shape, spec, mesh))
+                * leaf.element_size())
+    return 4              # a host int stands for the reference's int32 ()
+
+
+def _result_bytes(cfg, cell, local, result, shape,
+                  mesh) -> tuple[int, int]:
+    """(output, alias) bytes a device of the step's result: each leaf at
+    its share under the spec the reference's compiled step gives it
+    (params and moments their own, metrics replicated, logits by batch and
+    vocab, the new decode state ``state_out_pspecs``); a leaf aliases its
+    donated argument (the params, the moments, the decode state) where the
+    two agree in layout, shape and dtype, as XLA reuses a donated buffer
+    for such an output (a host int: the reference's int32 index).  So a
+    recurrent state that the port's step returns in a new buffer aliases,
+    and an SSD state that turns f32 from its bf16 init does not."""
+    params = cell.args[0]
+    if shape.kind == "train":
+        pspecs = param_pspecs(params, mesh)
+        ospecs = tree_pspecs(cell.args[1], mesh, params)
+        parts = [(result[0], params, pspecs, pspecs, local.args[0]),
+                 (result[1], cell.args[1], ospecs, ospecs, local.args[1]),
+                 (result[2], result[2], tree_map(lambda _: (), result[2]),
+                  None, None)]
+    else:
+        b, v = shape.global_batch, params["lm_head"].shape[-1]
+        logits = torch.empty((b, v), device="meta")
+        if shape.kind == "prefill":
+            state, in_specs = Model(cfg).init_decode_state(
+                params, b, shape.seq_len), None
+        else:
+            state = cell.args[1]
+            in_specs = state_pspecs(state, mesh)
+        parts = [(result[0], logits, logits_pspec((b, v), mesh), None, None),
+                 (result[1], state, state_out_pspecs(state, mesh), in_specs,
+                  local.args[1] if in_specs is not None else None)]
+    output = alias = 0
+    for res, like, out_specs, in_specs, donated in parts:
+        outs = list(_zip_specs(res, out_specs, like))
+        ins = (list(_zip_specs(res, in_specs, donated))
+               if in_specs is not None else [None] * len(outs))
+        for (leaf, spec, g), inp in zip(outs, ins):
+            n = _leaf_out_bytes(leaf, g, spec, mesh)
+            output += n
+            if inp is None or not same_layout(spec, inp[1], mesh):
+                continue
+            old = inp[2]
+            if not isinstance(leaf, torch.Tensor) or (
+                    isinstance(old, torch.Tensor) and leaf.shape == old.shape
+                    and leaf.dtype == old.dtype):
+                alias += n
+    return output, alias
+
+
+def reckon_memory(cfg, shape, mesh, *, microbatches: int = 1,
+                  opt_cfg: AdamWConfig | None = None) -> dict:
+    """One device's memory for the cell's step on ``mesh``, as the
+    reference reads it from XLA's ``memory_analysis``: ``mem_argument``,
+    ``mem_output`` and ``mem_alias`` from each leaf's spec on the whole
+    job's trees (``Cell.bytes_per_device``, ``_result_bytes``), and
+    ``mem_temp`` from ``mem_of`` on the step built from ``local_config``
+    at ``local_shape`` (``MEM_TEMP_MODEL``); ``bytes_per_device`` is
+    ``temp + argument + output - alias``.  On a one-device mesh the step
+    reckoned is the cell's own."""
+    opt_cfg = opt_cfg or OPT_CFG
+    cell = build_cell(cfg, shape, microbatches=microbatches, opt_cfg=opt_cfg)
+    lcfg, lshape, mb = local_config(cfg, mesh), local_shape(shape, mesh), \
+        microbatches
+    if shape.kind == "train" and mb > 2:
+        # microbatches 3..n hold the second's live set again: the step's
+        # first two, over the rows they take
+        if lshape.global_batch % mb:
+            raise ValueError(f"batch {lshape.global_batch} does not split "
+                             f"into {mb} microbatches")
+        lshape = dataclasses.replace(
+            lshape, global_batch=2 * lshape.global_batch // mb)
+        mb = 2
+    local = build_cell(lcfg, lshape, microbatches=mb, opt_cfg=opt_cfg)
+    mem = mem_of(local.fn, *local.args,
+                 shares=_param_shares(cell, local, mesh))
+    temp = mem.temp + _gathered_repeat(cfg, shape, local, mesh)
+    output, alias = _result_bytes(cfg, cell, local, mem.result, shape, mesh)
+    argument = cell.bytes_per_device(mesh)
+    return {"mem_temp": int(temp), "mem_argument": int(argument),
+            "mem_output": int(output), "mem_alias": int(alias),
+            "bytes_per_device": int(temp + argument + output - alias)}
+
+
 def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
                verbose: bool = True, probes: bool = True,
                fit_hint: dict | None = None) -> dict:
-    """One LM cell's row: the arguments' bytes a device (the memory proof
-    the port can give) and, with ``probes``, the roofline terms from the
-    counted step."""
+    """One LM cell's row: the memory proof (``reckon_memory``) with, for a
+    train cell, the reference's fit of microbatches and moments, and, with
+    ``probes``, the roofline terms from the counted step.  ``fit_hint``
+    seeds (microbatches, opt_moments) from a previous sweep."""
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     mesh_name = "2x16x16" if multi_pod else "16x16"
@@ -174,36 +378,66 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
                 "status": "skip", "reason": reason}
 
     mesh = make_production_mesh(multi_pod=multi_pod)
+
+    # ---- the memory proof, with the reference's auto-fit: escalate
+    # microbatches (keeping the per-microbatch batch >= data shards); if
+    # the f32 optimizer alone exceeds the card, bf16 moments
+    data_shards = mesh.shape.get("data", 1) * mesh.shape.get("pod", 1)
+    max_mb = max(shape.global_batch // data_shards, 1)
     t0 = time.time()
     microbatches, opt_cfg = 1, OPT_CFG
     if fit_hint:
-        data_shards = mesh.shape.get("data", 1) * mesh.shape.get("pod", 1)
-        microbatches = min(int(fit_hint.get("microbatches", 1)),
-                           max(shape.global_batch // data_shards, 1))
+        microbatches = min(int(fit_hint.get("microbatches", 1)), max_mb)
         if fit_hint.get("opt_moments") == "bfloat16":
             opt_cfg = AdamWConfig(moment_dtype="bfloat16")
-    mem_arg = build_cell(cfg, shape, microbatches=microbatches,
-                         opt_cfg=opt_cfg).bytes_per_device(mesh)
-    if (shape.kind == "train" and mem_arg > HBM_FIT
-            and opt_cfg.moment_dtype == "float32"):
-        opt_cfg = AdamWConfig(moment_dtype="bfloat16")
-        if verbose:
-            print(f"  {mem_arg / 2 ** 30:.1f} GiB of arguments > fit; "
-                  f"bf16 optimizer moments")
-        mem_arg = build_cell(cfg, shape, microbatches=microbatches,
-                             opt_cfg=opt_cfg).bytes_per_device(mesh)
+    seen = {}
+    while True:
+        mem = reckon_memory(cfg, shape, mesh, microbatches=microbatches,
+                            opt_cfg=opt_cfg)
+        mem_dev = mem["bytes_per_device"]
+        seen[microbatches] = mem_dev
+        if shape.kind != "train" or mem_dev <= HBM_FIT:
+            break
+        if microbatches < max_mb:
+            if len(seen) >= 2:
+                # temp(mb) ~ fixed + act/mb: solve from two samples and jump
+                mbs = sorted(seen)[-2:]
+                m1, m2 = seen[mbs[0]], seen[mbs[1]]
+                act = (m1 - m2) / (1.0 / mbs[0] - 1.0 / mbs[1]) \
+                    if mbs[0] != mbs[1] else 0.0
+                fixed = m1 - act / mbs[0]
+                target = microbatches * 2
+                while (fixed + act / target > HBM_FIT
+                       and target < max_mb):
+                    target *= 2
+                microbatches = min(target, max_mb)
+            else:
+                microbatches = min(microbatches * 2, max_mb)
+            if verbose:
+                print(f"  {mem_dev/2**30:.1f} GiB > fit; retry "
+                      f"microbatches={microbatches}")
+            continue
+        if opt_cfg.moment_dtype == "float32":
+            opt_cfg = AdamWConfig(moment_dtype="bfloat16")
+            if verbose:
+                print(f"  {mem_dev/2**30:.1f} GiB > fit at max microbatches; "
+                      f"retry with bf16 optimizer moments")
+            continue
+        break                           # report honestly as not fitting
     row = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
            "status": "ok", "microbatches": microbatches,
            "opt_moments": opt_cfg.moment_dtype,
-           "bytes_per_device": float(mem_arg),
-           "fits_hbm": bool(mem_arg <= HBM_BYTES),
-           "mem_argument": int(mem_arg), "mem_temp": None,
-           "mem_temp_reason": MEM_TEMP_REASON}
+           "bytes_per_device": float(mem_dev),
+           "fits_hbm": bool(mem_dev <= HBM_BYTES),
+           **{k: mem[k] for k in ("mem_temp", "mem_argument", "mem_output",
+                                  "mem_alias")},
+           "mem_temp_model": MEM_TEMP_MODEL}
     if not probes:
         row["count_s"] = time.time() - t0
         if verbose:
             print(f"--- {arch} × {shape_name} × {mesh_name} ---")
-            print(f"bytes/dev={mem_arg / 2 ** 30:.2f}GiB "
+            print(f"microbatches={microbatches} "
+                  f"bytes/dev={mem_dev / 2 ** 30:.2f}GiB "
                   f"fits={row['fits_hbm']}")
         return row
 
@@ -211,15 +445,18 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
     terms = roofline_from_cost(
         flops, bytes_, arch=arch, shape=shape_name, mesh_name=mesh_name,
         chips=mesh.size, model_flops_val=model_flops(cfg, shape),
-        bytes_per_device=float(mem_arg))
+        bytes_per_device=float(mem_dev))
     row = {**terms.row(), **row, "collective_bytes": None,
            "hlo_bytes": terms.hlo_bytes, "count_s": time.time() - t0}
     if verbose:
         print(f"--- {arch} × {shape_name} × {mesh_name} ---")
+        print(f"microbatches={microbatches} temp={mem['mem_temp']} "
+              f"argument={mem['mem_argument']} output={mem['mem_output']} "
+              f"alias={mem['mem_alias']}")
         print(f"roofline: compute {terms.compute_s * 1e3:.2f}ms "
               f"memory {terms.memory_s * 1e3:.2f}ms collective - "
               f"dominant={terms.dominant} useful={terms.useful_ratio:.3f} "
-              f"bytes/dev={mem_arg / 2 ** 30:.2f}GiB fits={row['fits_hbm']}")
+              f"bytes/dev={mem_dev / 2 ** 30:.2f}GiB fits={row['fits_hbm']}")
     return row
 
 

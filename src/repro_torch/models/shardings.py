@@ -30,8 +30,9 @@ import torch
 from .common import DEFAULT_RULES, resolve_spec
 from .layout import from_reference, named_leaves, tree_map
 
-__all__ = ["param_pspecs", "state_pspecs", "batch_pspecs", "tree_pspecs",
-           "shard_shape", "bytes_per_device"]
+__all__ = ["param_pspecs", "state_pspecs", "state_out_pspecs",
+           "logits_pspec", "batch_pspecs", "tree_pspecs", "shard_shape",
+           "same_layout", "bytes_per_device"]
 
 # leaf-name -> logical axes per rank (the stacked `blocks` axis is prepended
 # automatically when the path passes through "blocks")
@@ -141,6 +142,30 @@ def state_pspecs(state, mesh, rules: dict | None = None):
         _state_axes, mesh, rules, path, leaf, repeat))
 
 
+# a decode state leaf whose output spec differs from its input spec: XLA's
+# propagation gives the local-attention ring's slot positions (W,) the
+# sharding of the cache slots they index (kv_seq), where the reference's
+# state spec replicates them on the way in
+_STATE_OUT_AXES = {"pos": ("kv_seq",)}
+
+
+def state_out_pspecs(state, mesh, rules: dict | None = None):
+    """The specs of the new decode state that the reference's compiled
+    prefill and decode steps return: ``state_pspecs``'s, but for the
+    leaves of ``_STATE_OUT_AXES``."""
+    rules = _rules(rules)
+    return from_reference(state, lambda path, leaf, repeat: _leaf_spec(
+        lambda name, rank: tuple(_STATE_OUT_AXES.get(name)
+                                 or _state_axes(name, rank)),
+        mesh, rules, path, leaf, repeat))
+
+
+def logits_pspec(shape, mesh, rules: dict | None = None) -> tuple:
+    """The (B, V) logits' spec: batch and vocab."""
+    return resolve_spec(mesh, _rules(rules), ("batch", "vocab"),
+                        tuple(shape))
+
+
 def batch_pspecs(batch, mesh, rules: dict | None = None):
     """Input batch specs: leading dim is always the global batch."""
     rules = _rules(rules)
@@ -194,6 +219,20 @@ def shard_shape(shape, spec, mesh) -> tuple:
                              f"{n} ways ({spec})")
         out[i] //= n
     return tuple(out)
+
+
+def same_layout(a, b, mesh) -> bool:
+    """Two specs lay an array out alike on ``mesh``: equal once the axes of
+    size 1 are dropped (a donated buffer is reused only for an output of
+    its own layout)."""
+    def axes(spec):
+        out = []
+        for ax in spec:
+            names = ax if isinstance(ax, tuple) else (ax,)
+            out.append(tuple(n for n in names
+                             if n is not None and mesh.shape[n] > 1))
+        return out
+    return axes(a) == axes(b)
 
 
 def _leaf_bytes(leaf, spec, mesh) -> int:

@@ -31,7 +31,13 @@ __all__ = ["init_ssd", "ssd_chunked", "ssd_block", "ssd_decode_init",
 
 
 def _dims(cfg):
+    # ssm_expand may be a fraction (an inner width below d_model), so long
+    # as the width it gives is whole
     d_in = cfg.ssm_expand * cfg.d_model
+    if d_in != int(d_in):
+        raise ValueError(f"ssm_expand {cfg.ssm_expand} x d_model "
+                         f"{cfg.d_model} is not a whole width")
+    d_in = int(d_in)
     heads = d_in // cfg.ssm_headdim
     return d_in, heads, cfg.ssm_state, cfg.ssm_headdim
 

@@ -21,6 +21,9 @@ a config, line for line.
 from __future__ import annotations
 
 import dataclasses
+import gc
+import math
+import weakref
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -28,8 +31,9 @@ from torch.utils.flop_counter import flop_registry
 
 from ..models.model import pattern_for
 
-__all__ = ["H100", "RooflineTerms", "cost_of", "roofline_from_cost",
-           "count_params", "model_flops"]
+__all__ = ["H100", "RooflineTerms", "MemCount", "ALLOC_BLOCK", "block_bytes",
+           "mem_of", "cost_of", "roofline_from_cost", "count_params",
+           "model_flops"]
 
 # NVIDIA H100 SXM per-card constants (data sheet, dense rates, 700 W)
 H100 = {
@@ -85,6 +89,283 @@ class _CostMode(TorchDispatchMode):
                 {k: v for k, v in kwargs.items() if k != "out"})
                 + _tensor_bytes(out))
         return out
+
+
+def _tensors(x) -> list:
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _tensors(v)]
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in _tensors(v)]
+    return []
+
+
+ALLOC_BLOCK = 512
+
+
+def block_bytes(nbytes: int) -> int:
+    """``nbytes`` as the CUDA caching allocator books it: rounded up to its
+    512 B block (0 stays 0), the unit of ``max_memory_allocated``."""
+    return -(-int(nbytes) // ALLOC_BLOCK) * ALLOC_BLOCK
+
+
+def _contiguous_copies(*ts, **_) -> int:
+    return sum(block_bytes(t.numel() * t.element_size()) for t in ts
+               if isinstance(t, torch.Tensor) and not t.is_contiguous())
+
+
+def _logsumexp_inner(x, dim, keepdim=False) -> int:
+    kept = x.numel() // max(math.prod(x.shape[d] for d in (
+        dim if isinstance(dim, (list, tuple)) else [dim])), 1)
+    return (block_bytes(x.numel() * x.element_size())
+            + block_bytes(kept * x.element_size()))
+
+
+# ops whose CUDA kernel holds buffers of its own that no meta kernel shows,
+# by the op's arguments (found on the H100 by ``tools/memory_probe.py``):
+# ``logsumexp`` is a composite below the dispatch modes, whose amax and
+# ``(self - amax).exp_()`` live whole until the sum; the softmax kernels
+# first copy a non-contiguous input (the masked scores, their grad and
+# output) to a contiguous one
+_INNER_BYTES = {
+    _aten.logsumexp.default: _logsumexp_inner,
+    _aten._softmax.default: lambda x, *a, **k: _contiguous_copies(x),
+    _aten._softmax_backward_data.default:
+        lambda g, y, *a, **k: _contiguous_copies(g, y),
+}
+# ops that run out of place only because a dispatch mode is on: autograd's
+# index backward calls ``_index_put_impl_`` into its zeros in place, and
+# ``index_put`` instead where a mode makes every tensor "subclass-like"
+# (ATen's ``isTensorSubclassLike``); its ``self`` is not counted beside its
+# result at that op
+_OUT_OF_PLACE_UNDER_MODES = {_aten.index_put.default}
+
+
+# the ops through which a new storage takes the share of the parameter it
+# comes from (``mem_of``'s ``shares``).  Each way: a cast or a copy (a
+# weight's bf16 copy, a grad's f32 one) and each position of a
+# ``_foreach_*`` op's lists (the optimizer's grads, moments and updates; the
+# microbatches' grads summed).  From the result back to the arguments at
+# the given positions only (``_BACK``), where the result is itself a
+# weight's: a grad summed from partial grads, put into zeros, or a slice's
+# grad scattered back.  So a tensor derived from a weight through any other
+# op, an activation, keeps its whole size, whatever its shape.
+_EACH_WAY = {_aten._to_copy.default, _aten.clone.default}
+_BACK = {
+    _aten.add.Tensor: (0, 1), _aten.add_.Tensor: (1,),
+    _aten.copy_.default: (1,), _aten.index_put.default: (0,),
+    _aten.index_add.default: (0,), _aten.select_backward.default: (0,),
+    _aten.slice_backward.default: (0,),
+}
+
+
+@dataclasses.dataclass
+class MemCount:
+    """A step's device memory, as XLA's ``memory_analysis`` splits it: the
+    peak of the live set is ``temp + argument + output - alias`` (the
+    arguments and outputs in exact bytes, the rest in the allocator's
+    blocks); ``result`` is the call's return value; ``storages`` holds, for
+    each storage in order (the arguments' first), the op that made it (None
+    for an argument), its shape, the storages its op took, and the share it
+    was counted at (None: whole)."""
+    temp: int
+    output: int
+    alias: int
+    argument: int
+    result: object = dataclasses.field(default=None, repr=False,
+                                       compare=False)
+    storages: list = dataclasses.field(default_factory=list, repr=False,
+                                       compare=False)
+
+
+class _LiveMode(TorchDispatchMode):
+    """The live set of the storages that the ops dispatched inside it
+    return: a storage joins it when an op first returns it without having
+    taken it as an input, and leaves it when its last tensor dies (a weak
+    reference's callback; a storage's Python object lives as long as the
+    storage).  So a view or an in-place op adds nothing, and autograd's
+    saved tensors and a checkpoint's recomputed ones count while they are
+    held.  Each storage gets a serial number (the arguments' first); the
+    births, deaths and ends of ops are recorded as ``events`` and the links
+    of ``_EACH_WAY``, ``_BACK`` and the foreach ops as ``links``, so that
+    ``peak`` can count each storage at a share settled once the call has
+    ended."""
+
+    def __init__(self):
+        super().__init__()
+        self.serial: dict[int, int] = {}   # id of a live storage -> serial
+        self.held: list = []               # the arguments' storages
+        self.refs: dict[int, weakref.ref] = {}
+        self.storages: list = []           # serial -> [op, shape, ins]
+        self.sizes: list[int] = []         # serial -> bytes
+        self.events: list = []             # (+1 | -1, serial), (0, extra, less)
+        self.links: list = []              # (serials each way, serials back)
+        self.n_args = 0
+
+    def _add(self, s, op, shape, ins) -> int:
+        k = len(self.sizes)
+        self.sizes.append(s.nbytes())
+        self.storages.append((op, shape, ins))
+        self.serial[id(s)] = k
+        return k
+
+    def enter_args(self, args):
+        for t in _tensors(args):
+            s = t.untyped_storage()
+            if id(s) not in self.serial:
+                self._add(s, None, tuple(t.shape), ())
+                self.held.append(s)
+        self.n_args = len(self.sizes)
+
+    def _died(self, key):
+        del self.refs[key]
+        self.events.append((-1, self.serial.pop(key)))
+
+    def _sid(self, t):
+        return (self.serial.get(id(t.untyped_storage()))
+                if isinstance(t, torch.Tensor) else None)
+
+    def _link(self, func, args, out):
+        if func.overloadpacket.__name__.startswith("_foreach_"):
+            cols = [a for a in args if isinstance(a, (list, tuple))
+                    and a and isinstance(a[0], torch.Tensor)]
+            if isinstance(out, (list, tuple)) and out:
+                cols.append(out)
+            for group in zip(*cols):
+                self.links.append(([self._sid(t) for t in group], ()))
+        elif func in _EACH_WAY:
+            self.links.append(([self._sid(args[0]), self._sid(out)], ()))
+        elif func in _BACK:
+            o = self._sid(out)
+            self.links.append(([o], [(o, self._sid(args[i]))
+                                     for i in _BACK[func]
+                                     if isinstance(args[i], torch.Tensor)
+                                     and args[i].numel() == out.numel()]))
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        inner = _INNER_BYTES.get(func)
+        extra = inner(*args, **kwargs) if inner else 0
+        less = None
+        if func in _OUT_OF_PLACE_UNDER_MODES:
+            less = self._sid(args[0])
+        out = func(*args, **kwargs)
+        ins = {id(t.untyped_storage()): t for t in _tensors((args, kwargs))}
+        in_serials = tuple(self.serial[i] for i in ins if i in self.serial)
+        for t in _tensors(out):
+            s = t.untyped_storage()
+            key = id(s)
+            if key in ins or key in self.serial:
+                continue
+            k = self._add(s, str(func), tuple(t.shape), in_serials)
+            self.refs[key] = weakref.ref(s, lambda _, k=key: self._died(k))
+            self.events.append((1, k))
+        self._link(func, args, out)
+        self.events.append((0, extra, less))
+        return out
+
+    def shares(self, roots: dict[int, float]) -> dict[int, float]:
+        """Each storage's share, from the arguments' (``roots``) along the
+        links: every storage of a group each way, from a result to its
+        arguments back."""
+        adj: dict[int, list] = {}
+        for group, back in self.links:
+            group = [k for k in group if k is not None]
+            for a in group:
+                adj.setdefault(a, []).extend(b for b in group if b != a)
+            for o, i in back:
+                if o is not None and i is not None:
+                    adj.setdefault(o, []).append(i)
+        share = dict(roots)
+        todo = list(roots)
+        while todo:
+            a = todo.pop()
+            for b in adj.get(a, ()):
+                if b not in share:
+                    share[b] = share[a]
+                    todo.append(b)
+        return share
+
+    def booked(self, k: int, share: dict) -> int:
+        f = share.get(k)
+        n = self.sizes[k]
+        return block_bytes(n if f is None else math.ceil(n * f))
+
+    def peak(self, share: dict) -> int:
+        """The live set's peak over the new storages, each at its share,
+        with the ops' own buffers (``_INNER_BYTES``) at their op."""
+        live = top = 0
+        for ev in self.events:
+            if ev[0]:
+                live += ev[0] * self.booked(ev[1], share)
+            else:
+                _, extra, less = ev
+                held = (self.booked(less, share)
+                        if less is not None and less >= self.n_args else 0)
+                top = max(top, live + extra - held)
+        return top
+
+
+def mem_of(fn, *args, shares=None) -> MemCount:
+    """The device memory of one eager call ``fn(*args)``, counted by the
+    live set of its storages (``_LiveMode``), each rounded up to the
+    caching allocator's 512 B block, with the hidden buffers of
+    ``_INNER_BYTES`` at the op that holds them and the ops of
+    ``_OUT_OF_PLACE_UNDER_MODES`` counted as they run without a mode:
+
+      * ``argument``: the bytes of the arguments' storages;
+      * ``output``: the bytes of the result's storages, an argument's among
+        them (XLA's ``output_size_in_bytes`` counts a donated buffer the
+        output reuses too);
+      * ``alias``: the bytes of the result's storages that are argument
+        storages: params, moments and caches written in place;
+      * ``temp``: the peak of the live set less the arguments' storages
+        (live at entry, held by the caller throughout) and the result's new
+        storages, as XLA's temporaries leave out both; so
+        ``temp + output - alias`` is what the call adds at its peak to the
+        memory its arguments hold.
+
+    ``shares``, where given, is a list of (argument tensor, share): a new
+    storage that comes from that argument's storage through the links of
+    ``_LiveMode`` (its casts, its grads and their partial sums, the
+    optimizer's temporaries for it) is counted at that share of its bytes
+    in ``temp``; every other storage whole.  Run on ``meta`` tensors
+    nothing is allocated.  Python's cycle collector is run before the call
+    and held off during it: a storage that only a reference cycle holds
+    counts until the call ends.  The port's steps leave none that matters:
+    a smoke decode step's count is the same with a collection every 20 ops
+    (``tests/test_torch_dryrun_memory.py``), and the card's peak over a
+    train step matches the count without one (``chip_smoke.py``'s ``train``
+    line)."""
+    mode = _LiveMode()
+    mode.enter_args(args)
+    roots = {mode.serial[id(t.untyped_storage())]: f
+             for t, f in (shares or ())}
+    gc.collect()
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        with mode:
+            result = fn(*args)
+        share = mode.shares(roots)
+        res = {}
+        for t in _tensors(result):
+            s = t.untyped_storage()
+            res.setdefault(id(s), (s.nbytes(), mode.serial[id(s)]))
+        new = sum(mode.booked(k, share) for _, k in res.values()
+                  if k >= mode.n_args)
+        output = sum(n for n, _ in res.values())
+        alias = sum(n for n, k in res.values() if k < mode.n_args)
+        argument = sum(mode.sizes[:mode.n_args])
+        storages = [(op, shape, ins, share.get(k)) for k, (op, shape, ins)
+                    in enumerate(mode.storages)]
+        return MemCount(temp=mode.peak(share) - new, output=output,
+                        alias=alias, argument=argument, result=result,
+                        storages=storages)
+    finally:
+        if was:
+            gc.enable()
 
 
 def cost_of(fn, *args) -> tuple[float, float]:

@@ -119,7 +119,7 @@ class TrainStep:
                 else:
                     torch._foreach_add_(grads, g)
                     metrics = {k: metrics[k] + m[k] for k in metrics}
-                del g
+                del g, m
             torch._foreach_div_(grads, float(n))
             metrics = {k: v / n for k, v in metrics.items()}
         return unflatten(params, grads), metrics

@@ -1,7 +1,7 @@
 """The port stands alone: no file of src/repro_torch, and none of
 chip_smoke.py, tools/lut16_probe.py, tools/context_probe.py,
-tools/b4_probe.py, tools/residual_probe.py, tools/lm_cell_probe.py and
-tools/cluster_probe.py, imports
+tools/b4_probe.py, tools/residual_probe.py, tools/lm_cell_probe.py,
+tools/cluster_probe.py and tools/memory_probe.py, imports
 jax or the JAX package ``repro``, and the package (its serving, cluster,
 persistence, observability, checkpoint and launch subpackages included)
 imports in a process where jax cannot be imported at all (its configs,
@@ -25,7 +25,7 @@ PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tools" / "lut16_probe.py",
     REPO / "tools" / "context_probe.py", REPO / "tools" / "b4_probe.py",
     REPO / "tools" / "residual_probe.py", REPO / "tools" / "lm_cell_probe.py",
-    REPO / "tools" / "cluster_probe.py"]
+    REPO / "tools" / "cluster_probe.py", REPO / "tools" / "memory_probe.py"]
 
 
 def _imported_roots(path: Path) -> set[str]:

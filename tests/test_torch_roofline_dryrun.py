@@ -178,11 +178,19 @@ def test_parse_overrides_and_probe():
 
 
 def test_lower_cell_rows(monkeypatch):
-    """A prefill cell's row, a skipped cell's (the reference's reason) and
-    the bf16-moment fallback, taken where the arguments exceed HBM_FIT."""
+    """A prefill cell's row (the memory proof's integer fields, their
+    total, the fit on it), a skipped cell's (the reference's reason) and
+    the fit search's last resort: where nothing fits HBM_FIT, the
+    microbatches' cap (global_batch // data shards) with bf16 moments."""
     row = dryrun.lower_cell("stablelm-1.6b-smoke", "prefill_32k",
                             multi_pod=False, verbose=False)
-    assert row["status"] == "ok" and row["mem_temp"] is None
+    mem = [row[k] for k in ("mem_temp", "mem_argument", "mem_output",
+                            "mem_alias")]
+    assert row["status"] == "ok" and all(
+        isinstance(v, int) and v >= 0 for v in mem)
+    assert row["bytes_per_device"] == mem[0] + mem[1] + mem[2] - mem[3]
+    assert row["mem_temp"] > 0 and row["mem_alias"] == 0
+    assert row["mem_temp_model"] == dryrun.MEM_TEMP_MODEL
     assert row["collective"].startswith("not reckoned")
     assert row["fits_hbm"] and row["useful_ratio"] > 0
     f32 = dryrun.lower_cell("stablelm-1.6b-smoke", "train_4k",
@@ -192,7 +200,10 @@ def test_lower_cell_rows(monkeypatch):
                              multi_pod=False, verbose=False, probes=False)
     assert (f32["opt_moments"], bf16["opt_moments"]) == ("float32",
                                                          "bfloat16")
+    assert (f32["microbatches"], bf16["microbatches"]) == (1, 256 // 16)
+    assert f32["mem_alias"] == f32["mem_output"] - 6 * 4   # 6 0-d metrics
     assert bf16["mem_argument"] < f32["mem_argument"]
+    assert bf16["mem_temp"] < f32["mem_temp"]
     skip = dryrun.lower_cell("qwen2-7b", "long_500k", multi_pod=True,
                              verbose=False)
     assert skip == {"arch": "qwen2-7b", "shape": "long_500k",

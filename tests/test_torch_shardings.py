@@ -2,9 +2,9 @@
 ``resolve_spec``) against the JAX package's, leaf by leaf, for all ten
 archs on stand-in production meshes of (16, 16) and (2, 16, 16): the
 reference over ``jax.eval_shape`` trees, the port over ``meta`` tensors.
-And the arguments' bytes a device against XLA's own
-``argument_size_in_bytes`` of the reference's compiled steps on a (2, 2)
-mesh of host devices."""
+And the arguments', outputs' and aliases' bytes a device against XLA's own
+``memory_analysis`` of the reference's compiled steps on a (2, 2) mesh of
+host devices."""
 
 import functools
 import json
@@ -202,21 +202,38 @@ _XLA_CHILD = textwrap.dedent("""
     import json, os, sys
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     import jax
+    import jax.numpy as jnp
     assert len(jax.devices()) == 4       # before the dryrun's 512 takes hold
     from repro.configs import ShapeConfig as RS, get_config as rget
     from repro.launch import dryrun as rdry
     from repro.launch.mesh import make_test_mesh as rmesh
     from repro_torch.configs import ShapeConfig, get_config
-    from repro_torch.launch.dryrun import build_cell
+    from repro_torch.launch.dryrun import build_cell, reckon_memory
     from repro_torch.launch.mesh import make_test_mesh
+
+    def out_bytes(fn):
+        c = jax.jit(fn).lower(jnp.ones(4)).compile()
+        return int(c.memory_analysis().output_size_in_bytes)
+
+    # XLA's output buffer of a tuple result holds an 8-byte entry a leaf
+    table = [out_bytes(lambda x: x + 1), out_bytes(lambda x: (x + 1, x * 2))]
     out = []
     for arch, kind, s in json.loads(sys.argv[1]):
-        rmem = rdry.build_lowered(rget(arch), RS("t", s, 4, kind),
-                                  rmesh((2, 2))).compile().memory_analysis()
-        port = build_cell(get_config(arch), ShapeConfig("t", s, 4, kind))
-        out.append([arch, kind, int(rmem.argument_size_in_bytes),
-                    port.bytes_per_device(make_test_mesh((2, 2)))])
-    print(json.dumps(out))
+        compiled = rdry.build_lowered(rget(arch), RS("t", s, 4, kind),
+                                      rmesh((2, 2))).compile()
+        rmem = compiled.memory_analysis()
+        shape = ShapeConfig("t", s, 4, kind)
+        port = build_cell(get_config(arch), shape)
+        mem = reckon_memory(get_config(arch), shape, make_test_mesh((2, 2)))
+        out.append({"arch": arch, "kind": kind,
+                    "argument": int(rmem.argument_size_in_bytes),
+                    "output": int(rmem.output_size_in_bytes),
+                    "alias": int(rmem.alias_size_in_bytes),
+                    "temp": int(rmem.temp_size_in_bytes),
+                    "leaves": len(jax.tree.leaves(compiled.out_info)),
+                    "port_argument": port.bytes_per_device(
+                        make_test_mesh((2, 2))), "port": mem})
+    print(json.dumps({"table": table, "cells": out}))
 """)
 
 XLA_CELLS = [("stablelm-1.6b-smoke", "train", 32),
@@ -239,13 +256,41 @@ def xla_child():
     proc.communicate()
 
 
-def test_argument_bytes_equal_xla(xla_child):
-    """A dense train, a MoE prefill and a hybrid decode cell (smoke
-    configs, B = 4): the port's arguments' bytes a device on a (2, 2) mesh
-    equal ``argument_size_in_bytes`` of the reference's compiled step."""
+@pytest.fixture(scope="module")
+def xla_rows(xla_child):
+    """The child's rows: XLA's memory analysis of the reference's compiled
+    step and the port's reckoning of each cell on the (2, 2) mesh."""
     stdout, stderr = xla_child.communicate(timeout=300)
     assert xla_child.returncode == 0, stderr[-3000:]
     rows = json.loads(stdout.strip().splitlines()[-1])
-    assert len(rows) == len(XLA_CELLS)
-    for arch, kind, xla, port in rows:
-        assert port == xla, (arch, kind, xla, port)
+    assert len(rows["cells"]) == len(XLA_CELLS)
+    return rows
+
+
+def test_argument_bytes_equal_xla(xla_rows):
+    """A dense train, a MoE prefill and a hybrid decode cell (smoke
+    configs, B = 4): the port's arguments' bytes a device on a (2, 2) mesh
+    equal ``argument_size_in_bytes`` of the reference's compiled step."""
+    for row in xla_rows["cells"]:
+        assert row["port_argument"] == row["argument"] == \
+            row["port"]["mem_argument"], row
+
+
+def test_output_and_alias_bytes_equal_xla(xla_rows):
+    """The same cells: the port's ``mem_output`` and ``mem_alias`` equal
+    XLA's ``output_size_in_bytes`` and ``alias_size_in_bytes`` (the train
+    step's params and moments written in place; the prefill's logits and
+    new state; the decode step's caches and recurrent states in place, the
+    local ring's slot positions a new buffer of another layout).  XLA's
+    output adds the tuple's index table, 8 bytes a leaf (a two-leaf result
+    of two f32[4] is 48 bytes, one f32[4] 16).  The temporaries are
+    printed, not held: XLA fuses and reuses buffers that the eager step
+    materialises."""
+    one, two = xla_rows["table"]
+    assert (one, two) == (16, 2 * 16 + 2 * 8)
+    for row in xla_rows["cells"]:
+        port = row["port"]
+        assert port["mem_output"] + 8 * row["leaves"] == row["output"], row
+        assert port["mem_alias"] == row["alias"], row
+        print(f"{row['arch']} {row['kind']}: XLA temp {row['temp']}, "
+              f"port mem_temp {port['mem_temp']}")
