@@ -1,0 +1,7 @@
+"""``pass1_roofline.ragged``: see ``hybench.readers.pass1_roofline``."""
+
+from hybench.readers import pass1_roofline
+
+
+def read(ctx):
+    return pass1_roofline(ctx)
