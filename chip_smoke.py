@@ -2500,7 +2500,7 @@ def run_service(args, torch, idx, ds, slice_res):
     from repro_torch.core.sparse_index import sparse_queries_to_padded
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import PLAIN_CALLS
-    from repro_torch.obs import Observability, pass_breakdown
+    from repro_torch.obs import Observability, Tracer
     from repro_torch.serve import QueryService
 
     t_phase = time.perf_counter()
@@ -2596,21 +2596,30 @@ def run_service(args, torch, idx, ds, slice_res):
                "c1_500_recall_at_20": {"1_shard": recall_1,
                                        "2_shards": recall_2}}
 
-    # per-pass time at Q = 1, 8, 32 (CUDA events) and the host's share at
-    # Q = 1: a one-row request's wall time against its device time
+    # per-pass time at Q = 1, 8, 32 (the engine.pass* spans' device_s:
+    # CUDA events around each pass of a traced search, median of 10) and
+    # the host's share at Q = 1: a one-row request's wall time against its
+    # device time
     dev = idx.engine.arrays.codes.device
     qd_t = torch.from_numpy(q_dims).to(dev)
     qv_t = torch.from_numpy(q_vals).to(dev)
     qe_t = torch.from_numpy(q_dense).to(dev)
     breakdown = {}
+    tracer = Tracer()
     for q in (1, 8, 32):
-        b = pass_breakdown(idx.engine, qd_t[:q], qv_t[:q], qe_t[:q], iters=10,
-                           **kw)
-        breakdown[str(q)] = {"pass1_ms": b["pass1_s"] * 1e3,
-                             "passes23_ms": b["pass23_s"] * 1e3,
-                             "full_ms": b["full_s"] * 1e3,
-                             "pass1_fraction": b["pass1_fraction"],
-                             "timer": b["timer"]}
+        args = (qd_t[:q], qv_t[:q], qe_t[:q])
+        idx.engine.search(*args, **kw)                # warm
+        for _ in range(10):
+            with tracer.root("engine.search") as root:
+                idx.engine.search(*args, span=root, **kw)
+        per = [[c["tags"]["device_s"] for c in t["children"]]
+               for t in tracer.take()]
+        breakdown[str(q)] = {
+            "pass1_ms": statistics.median(p[0] for p in per) * 1e3,
+            "passes23_ms": statistics.median(p[1] + p[2] for p in per) * 1e3,
+            "full_ms": statistics.median(sum(p) for p in per) * 1e3,
+            "pass1_fraction": statistics.median(p[0] / sum(p) for p in per),
+            "timer": "cuda_events"}
     nocache = QueryService(idx.engine, id_map=idx.pi, cache_size=0, **kw)
     q1 = device_profile(torch, lambda: nocache.search(
         q_dims[:1], q_vals[:1], q_dense[:1]), runs=10)

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops
+from ..obs.trace import NULL_SPAN
 from . import residual as res
 from .pq import PQCodebooks, ScalarQuant, adc_lut, adc_scores_ref
 from .sparse_index import (PaddedInvertedIndex, PaddedSparseRows,
@@ -287,10 +288,20 @@ def _fused_pass1_topk(arrays: IndexArrays, q_dims: torch.Tensor,
                               packed=arrays.codes_packed)
 
 
+def _pass1_topk(arrays: IndexArrays, q_dims: torch.Tensor,
+                q_vals: torch.Tensor, lut: torch.Tensor, k: int,
+                backend: Backend, fused: bool):
+    """Pass-1 top-k by the route ``_use_fused_pass1`` picks."""
+    if _use_fused_pass1(backend, fused, k):
+        return _fused_pass1_topk(arrays, q_dims, q_vals, lut, k, backend)
+    approx = pass1_scores(arrays, q_dims, q_vals, lut, backend)
+    return res.topk_candidates(approx, k)
+
+
 def three_pass_search(arrays: IndexArrays, q_dims: torch.Tensor,
                       q_vals: torch.Tensor, q_dense: torch.Tensor, *, h: int,
                       c1: int, c2: int, backend: Backend = Backend.CUDA,
-                      fused: bool = True):
+                      fused: bool = True, span=NULL_SPAN):
     """The paper's full search on the arrays' device.  Returns (scores
     (Q, h), ids (Q, h), pass-1 ids (Q, c1)); ids are positions in
     cache-sorted row order (callers map through pi).
@@ -299,27 +310,30 @@ def three_pass_search(arrays: IndexArrays, q_dims: torch.Tensor,
     backends whenever c1 fits its buffer: the same bits, minus the (Q, N)
     round trip through device memory.  On the kernel backends the LUT and
     passes 2-3 take the fixed-order kernels (R0-R2), so a query's result
-    has the same bits alone, padded into a bucket or in any batch."""
+    has the same bits alone, padded into a bucket or in any batch.  Each
+    pass is an ``engine.pass1`` / ``engine.pass2`` / ``engine.pass3``
+    device child of ``span`` (``obs.trace``: its ``device_s`` tag)."""
     fixed = backend.uses_kernels
-    lut = adc_lut(q_dense, arrays.codebooks, fixed_order=fixed)
+    dev = q_dense.device
 
     # pass 1: approximate scores on the full shard, overfetch c1
-    if _use_fused_pass1(backend, fused, c1):
-        s1, ids1 = _fused_pass1_topk(arrays, q_dims, q_vals, lut, c1, backend)
-    else:
-        approx = pass1_scores(arrays, q_dims, q_vals, lut, backend)
-        s1, ids1 = res.topk_candidates(approx, c1)
+    with span.device_child("engine.pass1", dev):
+        lut = adc_lut(q_dense, arrays.codebooks, fixed_order=fixed)
+        s1, ids1 = _pass1_topk(arrays, q_dims, q_vals, lut, c1, backend,
+                               fused)
 
     # pass 2: + dense residual, keep c2
-    extra_d = res.dense_residual_scores(arrays.dense_residual, ids1, q_dense,
-                                        fixed_order=fixed)
-    s2, ids2 = res.reorder_pass(s1, ids1, extra_d, c2)
+    with span.device_child("engine.pass2", dev):
+        extra_d = res.dense_residual_scores(arrays.dense_residual, ids1,
+                                            q_dense, fixed_order=fixed)
+        s2, ids2 = res.reorder_pass(s1, ids1, extra_d, c2)
 
     # pass 3: + sparse residual, return h
-    q_cols = scatter_queries_compact(q_dims, q_vals, arrays.d_active)
-    extra_s = res.sparse_residual_scores(arrays.sparse_residual, ids2, q_cols,
-                                         fixed_order=fixed)
-    s3, ids3 = res.reorder_pass(s2, ids2, extra_s, h)
+    with span.device_child("engine.pass3", dev):
+        q_cols = scatter_queries_compact(q_dims, q_vals, arrays.d_active)
+        extra_s = res.sparse_residual_scores(arrays.sparse_residual, ids2,
+                                             q_cols, fixed_order=fixed)
+        s3, ids3 = res.reorder_pass(s2, ids2, extra_s, h)
     return s3, ids3, ids1
 
 
@@ -356,23 +370,23 @@ class ScoringEngine:
         return c1, c2
 
     def search(self, q_dims: torch.Tensor, q_vals: torch.Tensor,
-               q_dense: torch.Tensor, *, h: int, alpha: int, beta: int):
+               q_dense: torch.Tensor, *, h: int, alpha: int, beta: int,
+               span=NULL_SPAN):
         """Three-pass device search.  Returns (scores, ids, pass1_ids) in
-        cache-sorted row positions."""
+        cache-sorted row positions; ``span`` as ``three_pass_search``."""
         c1, c2 = self.candidate_counts(h, alpha, beta)
         return three_pass_search(self.arrays, q_dims, q_vals, q_dense,
                                  h=h, c1=c1, c2=c2, backend=self.backend,
-                                 fused=self.fused)
+                                 fused=self.fused, span=span)
 
     def pass1_topk(self, q_dims: torch.Tensor, q_vals: torch.Tensor,
-                   lut: torch.Tensor, k: int):
+                   lut: torch.Tensor, k: int, span=NULL_SPAN):
         """Pass-1-only local top-k (the distributed fan-out building block):
-        the same route, and the same bits, as pass 1 of ``search``."""
-        if _use_fused_pass1(self.backend, self.fused, k):
-            return _fused_pass1_topk(self.arrays, q_dims, q_vals, lut, k,
-                                     self.backend)
-        scores = pass1_scores(self.arrays, q_dims, q_vals, lut, self.backend)
-        return res.topk_candidates(scores, k)
+        the same route, and the same bits, as pass 1 of ``search``; an
+        ``engine.pass1`` device child of ``span`` (the LUT not in it)."""
+        with span.device_child("engine.pass1", lut.device):
+            return _pass1_topk(self.arrays, q_dims, q_vals, lut, k,
+                               self.backend, self.fused)
 
 
 # ---------------------------------------------------------------------------

@@ -42,13 +42,13 @@ the old.
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import scipy.sparse as sp
 import torch
 
 from ..device import to_numpy
+from ..obs.trace import NULL_SPAN
 from .cache_sort import cache_sort
 from .distributed import ceil16, merge_topk_host
 from .engine import IndexArrays, ScoringEngine, tombstone_mask
@@ -530,7 +530,7 @@ def plan_overfetch(engines, h: int, deleted) -> list[int]:
 def fanout_search(engines, h_fetch, offsets, id_map, delta_engine,
                   delta_ids, deleted, qd, qv, qe, *, h: int, alpha: int,
                   beta: int, qn: int | None = None, executor=None,
-                  dedup_upserts: bool = False, timing: dict | None = None):
+                  dedup_upserts: bool = False, span=NULL_SPAN):
     """THE fan-out merge (DESIGN.md §6.2): dispatch every main engine, then
     the delta engine, before any result reaches the host (CUDA launches
     are asynchronous, so the engines' device work queues back to back),
@@ -545,50 +545,60 @@ def fanout_search(engines, h_fetch, offsets, id_map, delta_engine,
     maps global row positions to external ids (None = identity);
     ``delta_engine`` fetches its whole capacity, with ``delta_ids`` mapping
     slots to external ids.  An engine is anything with
-    ``.search(qd, qv, qe, h=, alpha=, beta=) -> (scores, ids, ...)`` and
-    ``.num_points``.  ``qn`` trims bucket padding (rows at and after it)
+    ``.search(qd, qv, qe, h=, alpha=, beta=, span=) -> (scores, ids,
+    ...)`` and ``.num_points``.  ``qn`` trims bucket padding (rows at and after it)
     before the merge.  ``executor`` (a ``concurrent.futures`` executor)
     runs the dispatches concurrently, for engines that block; the
     in-process path leaves it None.  ``dedup_upserts`` forwards to
-    ``merge_topk_host``.  ``timing``, when a dict, receives ``dispatch_s``
-    (dispatch + collect of every engine) and ``merge_s`` (device-to-host
-    copies + host merge) wall seconds, the span tags ``QueryService``
-    feeds its ``serve.batch`` children (DESIGN.md §9.2); on the card the
-    device wait lands in ``merge_s``, at the first copy to the host,
-    unless a kernel wrapper already synchronised.  Returns ``(scores,
-    ids)`` (Q, h) numpy arrays."""
-    t0 = time.perf_counter()
+    ``merge_topk_host``.
+
+    On CUDA the stream of the queries' device is synchronised between the
+    dispatch and the first copy to the host, whether or not ``span``
+    traces: the wait that copy would make, made explicit.  ``span``
+    (``obs.trace``; ``QueryService`` hands its ``serve.batch``) gets three
+    children: ``serve.dispatch`` (every engine's search launched, with
+    each engine's ``engine.pass*`` device children), ``serve.wait`` (the
+    synchronise) and ``serve.merge`` (the copies to the host, the id map
+    and the host merge); their durations are its ``dispatch_s`` and
+    ``merge_s`` tags (DESIGN.md §9.2).  Returns ``(scores, ids)`` (Q, h)
+    numpy arrays."""
     jobs = list(zip(engines, h_fetch))
     if delta_engine is not None:
         jobs.append((delta_engine, delta_engine.num_points))
 
-    def search(engine, h_engine):
-        return engine.search(qd, qv, qe, h=h_engine, alpha=alpha, beta=beta)
+    with span.child("serve.dispatch") as sd:
+        def search(engine, h_engine):
+            return engine.search(qd, qv, qe, h=h_engine, alpha=alpha,
+                                 beta=beta, span=sd)
 
-    if executor is not None:
-        futs = [executor.submit(search, *job) for job in jobs]
-        outs = [f.result() for f in futs]
-    else:
-        outs = [search(*job) for job in jobs]
+        if executor is not None:
+            futs = [executor.submit(search, *job) for job in jobs]
+            outs = [f.result() for f in futs]
+        else:
+            outs = [search(*job) for job in jobs]
     delta_out = outs.pop() if delta_engine is not None else None
-    t1 = time.perf_counter()
-    # assemble per-engine parts in a COMMON id space; shards stay in row
-    # order so the stable merge breaks ties like a top-k of the whole
-    rows = slice(None) if qn is None else slice(0, qn)
-    parts = []
-    for out, off in zip(outs, offsets):
-        ids = to_numpy(out[1][rows]).astype(np.int64) + int(off)
-        if id_map is not None:
-            ids = np.asarray(id_map)[ids]
-        parts.append((to_numpy(out[0][rows]), ids, True))
-    if delta_out is not None:
-        pos = to_numpy(delta_out[1][rows]).astype(np.int64)
-        parts.append((to_numpy(delta_out[0][rows]), delta_ids[pos], False))
-    out = merge_topk_host(parts, h, drop_ids=deleted,
-                          dedup_upserts=dedup_upserts)
-    if timing is not None:
-        timing["dispatch_s"] = t1 - t0
-        timing["merge_s"] = time.perf_counter() - t1
+    with span.child("serve.wait"):
+        if qd.device.type == "cuda":
+            torch.cuda.current_stream(qd.device).synchronize()
+    with span.child("serve.merge") as sm:
+        # assemble per-engine parts in a COMMON id space; shards stay in
+        # row order so the stable merge breaks ties like a top-k of the
+        # whole
+        rows = slice(None) if qn is None else slice(0, qn)
+        parts = []
+        for out, off in zip(outs, offsets):
+            ids = to_numpy(out[1][rows]).astype(np.int64) + int(off)
+            if id_map is not None:
+                ids = np.asarray(id_map)[ids]
+            parts.append((to_numpy(out[0][rows]), ids, True))
+        if delta_out is not None:
+            pos = to_numpy(delta_out[1][rows]).astype(np.int64)
+            parts.append((to_numpy(delta_out[0][rows]), delta_ids[pos],
+                          False))
+        out = merge_topk_host(parts, h, drop_ids=deleted,
+                              dedup_upserts=dedup_upserts)
+    span.set("dispatch_s", sd.duration_s)
+    span.set("merge_s", sm.duration_s)
     return out
 
 

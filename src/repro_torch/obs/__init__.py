@@ -1,12 +1,13 @@
 """Unified observability layer (DESIGN.md §9) of the port: metrics
-registry + request-scoped tracing + profiling hooks, shared by
-``QueryService`` and the persistence layer; counterpart of ``repro.obs``.
+registry + request-scoped tracing, shared by ``QueryService`` and the
+persistence layer; counterpart of ``repro.obs``.
 
 * ``metrics`` — lock-cheap counters/gauges/bounded-bucket histograms
   behind one :class:`MetricsRegistry` (§9.1; a copy of the reference's);
-* ``trace`` — per-request :class:`Span` trees (§9.2; a copy);
-* ``profile`` — opt-in ``torch.profiler`` capture + per-pass time
-  attribution (§9.3);
+* ``trace`` — per-request :class:`Span` trees (§9.2; the reference's,
+  plus the port's own: each span entered with ``with`` is a
+  ``torch.profiler`` range, and ``device_child`` spans carry the device
+  time of a search's passes);
 * ``exporter`` — the ``--metrics-port`` text endpoint (a copy).
 
 :class:`Observability` bundles one registry + one tracer and is the
@@ -20,17 +21,13 @@ from .metrics import (Counter, Gauge, Histogram,     # noqa: F401
                       NULL_HISTOGRAM, NULL_REGISTRY, DEFAULT_BOUNDS)
 from .trace import (Span, Tracer, NULL_SPAN,         # noqa: F401
                     NULL_TRACER, STAGES, stage_totals)
-from .profile import (StepAnnotation, device_trace,  # noqa: F401
-                      pass_breakdown, profiler_available)
 from .exporter import MetricsServer, start_metrics_server  # noqa: F401
 
 __all__ = [
     "Observability", "MetricsRegistry", "Counter", "Gauge", "Histogram",
     "Span", "Tracer", "NULL_SPAN", "NULL_TRACER", "NULL_COUNTER",
     "NULL_GAUGE", "NULL_HISTOGRAM", "NULL_REGISTRY", "DEFAULT_BOUNDS",
-    "STAGES", "stage_totals", "StepAnnotation", "device_trace",
-    "pass_breakdown", "profiler_available", "MetricsServer",
-    "start_metrics_server",
+    "STAGES", "stage_totals", "MetricsServer", "start_metrics_server",
 ]
 
 
@@ -45,11 +42,9 @@ class Observability:
     measurement, not production serving (DESIGN.md §9.4)."""
 
     def __init__(self, *, metrics: bool = True, trace: bool = False,
-                 keep_traces: int = 256,
-                 profile_dir: str | None = None):
+                 keep_traces: int = 256):
         self.metrics = MetricsRegistry(enabled=metrics)
         self.tracer = Tracer(enabled=trace, keep=keep_traces)
-        self.profile_dir = profile_dir
 
     @property
     def enabled(self) -> bool:

@@ -18,11 +18,23 @@ the serialized result under ``rmeta["trace"]``, which the client folds
 back in with ``Span.attach_remote``.  Requests without a ``trace`` key
 cost the server nothing — server-side tracing is opt-in per request.
 
+A span entered with ``with`` is also a ``torch.profiler.record_function``
+range of its name, opened on enter and closed on exit (on one thread), so
+inside a ``torch.profiler`` capture each such span is a ``user_annotation``
+event on the trace's own clock.  A span used without ``with`` (RPC
+children, ``attach_remote``, ``to_wire``) opens no range.  A child made by
+``device_child`` also times the device: on CUDA it records an event on the
+current stream at enter and at exit, and the pair becomes a ``device_s``
+tag when its root ends (if the events have completed) or at
+``Tracer.take()``; on the CPU, where the work is synchronous, ``device_s``
+is the span's host duration.  A settled root holds no CUDA events.
+
 The disabled path is the ``NULL_SPAN`` singleton: every method is a
-no-op, ``child()`` returns itself, ``wire_context()`` returns None (so
-nothing is added to request meta), and ``bool(NULL_SPAN)`` is False.
-Instrumented code never branches on "tracing on?" — it just talks to
-whatever span it was handed (DESIGN.md §9.4).
+no-op, ``child()`` and ``device_child()`` return itself,
+``wire_context()`` returns None (so nothing is added to request meta),
+and ``bool(NULL_SPAN)`` is False.  Instrumented code never branches on
+"tracing on?" — it just talks to whatever span it was handed (DESIGN.md
+§9.4).
 """
 
 from __future__ import annotations
@@ -31,6 +43,8 @@ import collections
 import os
 import threading
 import time
+
+import torch
 
 __all__ = ["Span", "Tracer", "NULL_SPAN", "NULL_TRACER", "stage_totals",
            "STAGES"]
@@ -51,7 +65,7 @@ class Span:
 
     __slots__ = ("name", "trace_id", "span_id", "parent_id", "start_s",
                  "duration_s", "tags", "annotations", "children",
-                 "_tracer")
+                 "_tracer", "_range", "_device", "_events")
 
     def __init__(self, name: str, *, trace_id: str | None = None,
                  parent_id: str | None = None, tracer=None, **tags):
@@ -65,6 +79,9 @@ class Span:
         self.annotations: list[str] = []
         self.children: list[Span] = []
         self._tracer = tracer
+        self._range = None
+        self._device = None     # set by device_child
+        self._events = None     # CUDA (start, end) events until settled
 
     def __bool__(self) -> bool:
         return True
@@ -86,6 +103,13 @@ class Span:
         c = Span(name, trace_id=self.trace_id, parent_id=self.span_id,
                  **tags)
         self.children.append(c)
+        return c
+
+    def device_child(self, name: str, device, **tags) -> "Span":
+        """A child span that also times ``device``'s work between its enter
+        and exit: its ``device_s`` tag (see the module docstring)."""
+        c = self.child(name, **tags)
+        c._device = torch.device(device)
         return c
 
     def wire_context(self) -> dict:
@@ -111,17 +135,53 @@ class Span:
 
     def end(self) -> None:
         """Stop the clock (idempotent) and, for roots created by a
-        tracer, publish the finished trace into its ring."""
+        tracer, settle the tree's device times that have completed and
+        publish the finished trace into its ring."""
         if self.duration_s is None:
             self.duration_s = time.perf_counter() - self.start_s
+            if self._device is not None and self._device.type != "cuda":
+                self.tags["device_s"] = self.duration_s
         if self._tracer is not None:
+            self._settle(wait=False)
             self._tracer._finish(self)
             self._tracer = None
 
+    def _settle(self, wait: bool) -> None:
+        """Turn each completed (start, end) event pair of the tree into a
+        ``device_s`` tag and drop the events; ``wait`` waits for the
+        pairs still pending."""
+        todo = [self]
+        while todo:
+            s = todo.pop()
+            todo += s.children
+            ev = s._events
+            if ev is None or len(ev) < 2:
+                continue
+            if not ev[1].query():
+                if not wait:
+                    continue
+                ev[1].synchronize()
+            s.tags["device_s"] = ev[0].elapsed_time(ev[1]) / 1e3
+            s._events = None
+
+    def _record(self) -> None:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(self._device))
+        self._events.append(ev)
+
     def __enter__(self) -> "Span":
+        self._range = torch.profiler.record_function(self.name)
+        self._range.__enter__()
+        if self._device is not None and self._device.type == "cuda":
+            self._events = []
+            self._record()
         return self
 
     def __exit__(self, *exc) -> None:
+        if self._events is not None:
+            self._record()
+        self._range.__exit__(*exc)
+        self._range = None
         self.end()
 
     def to_wire(self) -> dict:
@@ -173,6 +233,10 @@ class _NullSpan:
         """Returns itself (children of a null span are null)."""
         return self
 
+    def device_child(self, name, device, **tags):
+        """Returns itself."""
+        return self
+
     def wire_context(self):
         """None — nothing is propagated."""
         return None
@@ -207,8 +271,9 @@ class Tracer:
     ``root(name)`` returns :data:`NULL_SPAN` when disabled, so the
     per-request cost of "tracing off" is one branch.  Finished roots
     (``span.end()``) land in a ``deque(maxlen=keep)``; ``take()``
-    drains them as JSON dicts — how benchmarks source their span-based
-    breakdowns (DESIGN.md §9.2)."""
+    settles their pending device times and drains them as JSON dicts —
+    how benchmarks source their span-based breakdowns (DESIGN.md
+    §9.2)."""
 
     def __init__(self, *, enabled: bool = True, keep: int = 256):
         self.enabled = enabled
@@ -235,16 +300,14 @@ class Tracer:
             self._finished.append(span)
 
     def take(self) -> list[dict]:
-        """Drain and return every finished root trace as a dict."""
+        """Drain and return every finished root trace as a dict, waiting
+        for the device times of roots that ended before their work."""
         with self._lock:
             spans = list(self._finished)
             self._finished.clear()
+        for s in spans:
+            s._settle(wait=True)
         return [s.to_dict() for s in spans]
-
-    def last(self) -> dict | None:
-        """Peek the most recent finished root (not drained)."""
-        with self._lock:
-            return self._finished[-1].to_dict() if self._finished else None
 
 
 NULL_TRACER = Tracer(enabled=False)

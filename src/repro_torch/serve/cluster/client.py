@@ -503,7 +503,10 @@ class _RemoteEngineBase:
         self.part = part
         self.last_meta: dict = {}
 
-    def search(self, qd, qv, qe, *, h: int, alpha: int, beta: int):
+    def search(self, qd, qv, qe, *, h: int, alpha: int, beta: int,
+               span=None):
+        """``span`` (``fanout_search``'s dispatch span) is not used: the
+        remote side's passes are not traced back."""
         meta, arrays = self.client.call(
             "search", {"part": self.part, "gen": self.generation,
                        "h": int(h), "alpha": int(alpha), "beta": int(beta)},

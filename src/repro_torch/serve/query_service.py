@@ -82,7 +82,7 @@ from ..core.engine import (Backend, IndexArrays, ScoringEngine,
 from ..core.sparse_index import sparse_queries_to_padded
 from ..core.streaming import fanout_search, plan_overfetch
 from ..device import resolve_device
-from ..obs import Observability
+from ..obs import NULL_SPAN, Observability
 
 __all__ = ["QueryService", "CacheInfo", "JitCacheInfo", "bucket_for",
            "pad_rows"]
@@ -248,9 +248,13 @@ class QueryService:
         The :class:`repro_torch.obs.Observability` bundle (DESIGN.md §9): its
         registry backs ``cache_info()``/``stats()``/``metrics()`` and the
         WAL durability instruments; its tracer (off by default) emits one
-        ``serve.search`` root span per request with ``serve.batch``
-        children.  ``Observability.off()`` nulls everything — the no-obs
-        baseline for overhead measurement (§9.4).
+        ``serve.search`` root span per request: ``serve.lookup``, a
+        ``serve.batch`` per miss batch (``serve.h2d``, ``serve.dispatch``
+        with each engine's ``engine.pass1``-``engine.pass3``,
+        ``serve.wait``, ``serve.merge``) and ``serve.fill``; each is a
+        ``torch.profiler`` range (``obs.trace``).
+        ``Observability.off()`` nulls everything — the no-obs baseline for
+        overhead measurement (§9.4).
     """
 
     def __init__(self, engine: ScoringEngine | None = None, *,
@@ -745,43 +749,45 @@ class QueryService:
         # BOTH the generation and the delta-shard mutation version —
         # a cached hit can never serve pre-insert/pre-delete results.
         use_cache = self._cache_cap > 0
-        keys = [query_fingerprint(q_dims[i], q_vals[i], q_dense[i],
-                                  h, alpha, beta, gen.version, mut_version)
-                for i in range(qn)] if use_cache else None
         out_s = np.empty((qn, h), np.float32)
         out_i = np.empty((qn, h), np.int64)
         sp = self.obs.tracer.root("serve.search", qn=qn, h=h,
                                   gen=gen.version)
         hits = evictions = 0
         with sp:
-            with self._lock:
-                if not use_cache:
-                    miss = list(range(qn))
-                else:
-                    miss = []
-                    for i, key in enumerate(keys):
-                        hit = self._cache.get(key)
-                        if hit is not None:
-                            self._cache.move_to_end(key)
-                            hits += 1
-                            out_s[i], out_i[i] = hit
-                        else:
-                            miss.append(i)
+            with sp.child("serve.lookup"):
+                keys = [query_fingerprint(q_dims[i], q_vals[i], q_dense[i],
+                                          h, alpha, beta, gen.version,
+                                          mut_version)
+                        for i in range(qn)] if use_cache else None
+                with self._lock:
+                    if not use_cache:
+                        miss = list(range(qn))
+                    else:
+                        miss = []
+                        for i, key in enumerate(keys):
+                            hit = self._cache.get(key)
+                            if hit is not None:
+                                self._cache.move_to_end(key)
+                                hits += 1
+                                out_s[i], out_i[i] = hit
+                            else:
+                                miss.append(i)
             max_bucket = self.buckets[-1]
             for lo in range(0, len(miss), max_bucket):
                 rows = miss[lo:lo + max_bucket]
                 with sp.child("serve.batch", rows=len(rows),
                               bucket=bucket_for(len(rows),
                                                 self.buckets)) as bs:
-                    s, ids = self._run_batch(gen, view, q_dims[rows],
-                                             q_vals[rows], q_dense[rows],
-                                             h, alpha, beta, span=bs)
-                with self._lock:
-                    for j, i in enumerate(rows):
-                        out_s[i], out_i[i] = s[j], ids[j]
-                        if use_cache:
-                            self._cache[keys[i]] = (s[j].copy(),
-                                                    ids[j].copy())
+                    out_s[rows], out_i[rows] = self._run_batch(
+                        gen, view, q_dims[rows], q_vals[rows],
+                        q_dense[rows], h, alpha, beta, span=bs)
+            with sp.child("serve.fill"):
+                if use_cache and miss:
+                    with self._lock:
+                        for i in miss:
+                            self._cache[keys[i]] = (out_s[i].copy(),
+                                                    out_i[i].copy())
                             self._cache.move_to_end(keys[i])
                             while len(self._cache) > self._cache_cap:
                                 self._cache.popitem(last=False)
@@ -816,9 +822,11 @@ class QueryService:
     def _run_batch(self, gen: _Generation, view: _DeltaView | None,
                    q_dims: np.ndarray, q_vals: np.ndarray,
                    q_dense: np.ndarray, h: int, alpha: int, beta: int,
-                   span=None) -> tuple[np.ndarray, np.ndarray]:
+                   span=NULL_SPAN) -> tuple[np.ndarray, np.ndarray]:
         """Pad one miss-batch to its bucket, fan out over the main engine(s)
-        plus the delta shard, merge on host.
+        plus the delta shard, merge on host.  ``span`` gets a
+        ``serve.h2d`` child for the padding and the copies to the device,
+        and ``fanout_search``'s.
 
         The delta is literally one more engine in the fan-out (DESIGN.md
         §6.2); its tombstoned slots score -inf on device, main-generation
@@ -832,9 +840,11 @@ class QueryService:
         # padded rows carry the pad dim d_active: no score, no write
         d_active = gen.engine.arrays.d_active
         dev = gen.engine.arrays.codes.device
-        qd = torch.from_numpy(pad_rows(q_dims, bucket, fill=d_active)).to(dev)
-        qv = torch.from_numpy(pad_rows(q_vals, bucket)).to(dev)
-        qe = torch.from_numpy(pad_rows(q_dense, bucket)).to(dev)
+        with span.child("serve.h2d"):
+            qd = torch.from_numpy(pad_rows(q_dims, bucket,
+                                           fill=d_active)).to(dev)
+            qv = torch.from_numpy(pad_rows(q_vals, bucket)).to(dev)
+            qe = torch.from_numpy(pad_rows(q_dense, bucket)).to(dev)
 
         deleted = view.deleted if view is not None else frozenset()
         engines = gen.shards if gen.shards is not None else [gen.engine]
@@ -859,16 +869,11 @@ class QueryService:
         # the shared fan-out merge (core/streaming.py::fanout_search — the
         # same helper search_mutable uses): dispatch every engine before
         # syncing any, assemble in the common id space, merge on host.
-        timing = {} if span else None
-        out = fanout_search(engines, h_fetch, offsets, gen.id_map,
-                            delta_engine,
-                            view.ids if view is not None else None,
-                            deleted, qd, qv, qe, h=h, alpha=alpha,
-                            beta=beta, qn=qn, timing=timing)
-        if timing:
-            span.set("dispatch_s", timing["dispatch_s"])
-            span.set("merge_s", timing["merge_s"])
-        return out
+        return fanout_search(engines, h_fetch, offsets, gen.id_map,
+                             delta_engine,
+                             view.ids if view is not None else None,
+                             deleted, qd, qv, qe, h=h, alpha=alpha,
+                             beta=beta, qn=qn, span=span)
 
     # -- introspection ----------------------------------------------------
 

@@ -38,6 +38,7 @@ from repro_torch.core.hybrid import HybridIndex, HybridIndexParams
 from repro_torch.core.streaming import fanout_search
 from repro_torch.interchange import (hybrid_index_from_numpy,
                                      mutable_index_from_numpy)
+from repro_torch.obs import Tracer
 from repro_torch.serve import QueryService
 from repro_torch.serve.query_service import pad_rows
 
@@ -124,7 +125,7 @@ def test_sharded_fanout_matches_single_engine(served):
 
 
 def test_fanout_search_options_match_reference(served):
-    """``qn``, ``executor``, ``dedup_upserts`` and ``timing`` of the
+    """``qn``, ``executor``, ``dedup_upserts`` and ``span`` of the
     fan-out merge, over two row shards, against the reference's."""
     jidx, tidx, q_dims, q_vals, q_dense = served
     qn, d_active = 5, tidx.engine.arrays.d_active
@@ -138,10 +139,15 @@ def test_fanout_search_options_match_reference(served):
     kw = dict(h=10, alpha=20, beta=5, qn=qn, dedup_upserts=True)
     js, ji = jax_fanout(jeng, [10, 10], joff, jidx.pi, None, None, {4},
                         *map(jnp.asarray, q), **kw)
-    timing = {}
+    span = Tracer().root("serve.batch")
     ts, ti = fanout_search(teng, [10, 10], toff, tidx.pi, None, None, {4},
-                           *map(torch.from_numpy, q), timing=timing, **kw)
-    assert ts.shape == (qn, 10) and set(timing) == {"dispatch_s", "merge_s"}
+                           *map(torch.from_numpy, q), span=span, **kw)
+    assert ts.shape == (qn, 10) and set(span.tags) == {"dispatch_s",
+                                                       "merge_s"}
+    assert [c.name for c in span.children] == [
+        "serve.dispatch", "serve.wait", "serve.merge"]
+    assert [c.name for c in span.children[0].children] == [
+        "engine.pass1", "engine.pass2", "engine.pass3"] * 2
     assert 4 not in ti
     assert_topk_match(ts, ti, js, ji)
     with ThreadPoolExecutor(2) as ex:
